@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Smoke test of the repro_torch port on one CUDA card.
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` with
+``nvcc`` (one source so far), holds each kernel bit-equal to
+its plain PyTorch version on the card at the main path's shapes and times
+both, then drives the main path through the entry points a user calls:
+
+    Dataset.from_rows(rows, names, sort=..., measures=..., device="cuda")
+        .query(backend=...).where(e) -> count / group_by / top_k /
+                                        sum / avg / min / max / rows
+
+on the paper's section 4.1 uniform table (4 columns of cardinality 100,
+200, 400 and 800; 2^22 rows sorted, 2^21 rows unsorted), under the
+``ewah``, ``kernel`` and ``auto`` backends.  The three backends must agree
+and every answer must match a NumPy oracle over the same rows.  Each
+kernel's launch counter is set to 0 just before a main-path run and read
+just after it.
+
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
+line, when CUDA is unavailable or the port's sources are not beside it.
+Imports nothing of JAX or of the reference package.
+"""
+from __future__ import annotations
+
+import functools
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+SEED = 0
+ROWS_SORTED = 1 << 22
+ROWS_UNSORTED = 1 << 21
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA data sheet
+TILE_BYTES = 8 * 1024 * 4     # one (8, 1024) tile of 32-bit words
+NAMES = ["c0", "c1", "c2", "c3"]
+REPS = 30
+
+
+def log(*parts):
+    print(*parts, flush=True)
+
+
+# -- timing -------------------------------------------------------------------
+
+class Timer:
+    """Median device time of a call, by CUDA events around each call, with
+    the 50 MB L2 cache flushed before each one: the executor finds its
+    cached operands in device memory, not in L2."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def ms(self, fn, reps: int = REPS, warm: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+
+def bound_ms(n_bytes: int) -> float:
+    return n_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def tile_reads(wl, flags_a, flags_b, op: str) -> int:
+    """Operand tiles ``word_logical`` must read for these flags: a dirty
+    tile, unless the other side's clean constant fixes the result alone
+    (the rule of ``csrc/word_logical.cu``).  Sizes the kernel's bytes
+    bound."""
+    def decides(f, left):
+        if op == "and":
+            return f == wl.CLEAN0
+        if op == "or":
+            return f == wl.CLEAN1
+        if op == "xor":
+            return f != f
+        return f == (wl.CLEAN0 if left else wl.CLEAN1)  # a & ~b
+    read_a = (flags_a == wl.DIRTY) & ~decides(flags_b, False)
+    read_b = (flags_b == wl.DIRTY) & ~decides(flags_a, True)
+    return int(read_a.sum()) + int(read_b.sum())
+
+
+# -- kernel phase ---------------------------------------------------------------
+
+def word_logical_case(torch, wl, timer, a, b, op, label, fa=None,
+                      fb=None):
+    """Check one word_logical launch against the plain version on the
+    card and time kernel, plain version and the library call.  Flags
+    default to the exact tile flags of the words."""
+    if fa is None:
+        fa, fb = wl.tile_flags(a), wl.tile_flags(b)
+    got = wl.word_logical(a, b, fa, fb, op)
+    torch.cuda.synchronize()
+    want = wl.word_logical_plain(a, b, fa, fb, op)
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"word_logical {op} {label}: kernel != plain "
+                             f"(max abs err {err})")
+    lib = {"and": torch.bitwise_and, "or": torch.bitwise_or,
+           "xor": torch.bitwise_xor}.get(op)
+    if lib is not None and not torch.equal(lib(a, b), got):
+        raise AssertionError(f"word_logical {op} {label}: != torch.{lib}")
+    R, C = a.shape
+    n_bytes = (tile_reads(wl, fa, fb, op) * TILE_BYTES + R * C * 4
+               + 2 * fa.numel() * 4)
+    row = {
+        "shape": [R, C], "op": op, "label": label,
+        "max_abs_err": err,
+        "ms": timer.ms(lambda: wl.word_logical(a, b, fa, fb, op)),
+        "plain_ms": timer.ms(
+            lambda: wl.word_logical_plain(a, b, fa, fb, op), reps=5),
+        "bound_ms": bound_ms(n_bytes), "bound_by": "bytes",
+        "library_ms": timer.ms(lambda: lib(a, b)) if lib else None,
+        "dirty_tiles": [int((fa == wl.DIRTY).sum()),
+                        int((fb == wl.DIRTY).sum()), int(fa.numel())],
+    }
+    log("kernel_case", json.dumps(row))
+    return row
+
+
+def synthetic_words(torch, gen, R, C):
+    """Random words with forced clean-0 / clean-1 tiles and top bits set."""
+    a = torch.randint(-2**31, 2**31 - 1, (R, C), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    b = torch.randint(-2**31, 2**31 - 1, (R, C), dtype=torch.int32,
+                      device="cuda", generator=gen)
+    a[:, : C // 4] = 0                 # a: first quarter clean-0
+    b[:, C // 4: C // 2] = -1          # b: second quarter clean-1
+    a[: R // 2, C // 2: 3 * C // 4] = -1
+    b[R // 2:, 3 * C // 4:] = 0
+    return a, b
+
+
+def kernel_phase(torch, ops, wl, timer):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    words_sorted = ops.bucket_cols(-(-ROWS_SORTED // 32))
+    words_unsorted = ops.bucket_cols(-(-ROWS_UNSORTED // 32))
+    # the main path's shapes: the halves of a 64-row bucketed stack, and
+    # the one-row AND-NOT padded to a tile of 8 rows
+    for R, C in ((32, words_sorted), (8, words_sorted), (8, words_unsorted)):
+        a, b = synthetic_words(torch, gen, R, C)
+        for op in wl.OPS:
+            word_logical_case(torch, wl, timer, a, b, op, "synthetic")
+    npop = {"and": torch.bitwise_and, "or": torch.bitwise_or,
+            "xor": torch.bitwise_xor}
+    for L in (2, 3, 8, 64):
+        m = torch.randint(-2**31, 2**31 - 1, (L, words_sorted),
+                          dtype=torch.int32, device="cuda", generator=gen)
+        m[0, : words_sorted // 3] = 0
+        m[-1, words_sorted // 2:] = -1
+        m_host = m.cpu().numpy().view(np.uint32)
+        rf = torch.from_numpy(ops.np_row_flags(m_host)).cuda()
+        for op in ("and", "or", "xor"):
+            got = ops.logical_reduce(m, op, row_flags=rf)
+            torch.cuda.synchronize()
+            plain = functools.reduce(npop[op], m.unbind(0))
+            if not torch.equal(got, plain):
+                raise AssertionError(f"logical_reduce L={L} {op} != plain")
+            # least bytes: the dirty row blocks of the input, except in a
+            # column block that a clean-0 (AND) or clean-1 (OR) row decides,
+            # read once; the result row written once
+            dirty = rf == wl.DIRTY
+            absorb = {"and": wl.CLEAN0, "or": wl.CLEAN1}.get(op)
+            if absorb is not None:
+                dirty &= ~(rf == absorb).any(dim=0, keepdim=True)
+            n_bytes = int(dirty.sum()) * 1024 * 4 + words_sorted * 4
+            row = {"L": L, "op": op, "cols": words_sorted,
+                   "ms": timer.ms(lambda: ops.logical_reduce(
+                       m, op, row_flags=rf)),
+                   "plain_ms": timer.ms(lambda: functools.reduce(
+                       npop[op], m.unbind(0)), reps=5),
+                   "bound_ms": bound_ms(n_bytes), "bound_by": "bytes",
+                   "library_ms": None}
+            log("reduce_case", json.dumps(row))
+
+
+# -- main path ----------------------------------------------------------------
+
+def make_table(synth, n, seed):
+    rng = np.random.default_rng(seed)
+    table, _ = synth.factorize(synth.uniform_table(n, 4, r=2, rng=rng))
+    sales = rng.integers(0, 1_000_000, n)
+    return table, {"sales": sales}
+
+
+def statements(col, table):
+    """The statement set as (name, filter expression, terminal), with the
+    NumPy masks of its two filters over ``table``."""
+    cards = table.max(axis=0) + 1
+    by_card = [int(c) for c in np.argsort(cards)]   # narrowest first
+    narrow, wide = by_card[0], by_card[-1]
+    second = by_card[-2]
+    rng = np.random.default_rng(SEED + 1)
+    vals = sorted(int(v) for v in rng.choice(int(cards[wide]), 40,
+                                             replace=False))
+    vals2 = sorted(int(v) for v in rng.choice(int(cards[second]), 100,
+                                              replace=False))
+    v_narrow = int(rng.integers(0, int(cards[narrow])))
+    mid = [c for c in range(4) if c not in (wide, narrow)]
+    e_in = col(NAMES[wide]).isin(vals)
+    # AND of two ORs minus one bitmap: on the unsorted table the two OR
+    # results are dense, so ``auto`` takes the kernel for the AND-NOT
+    e_diff = e_in & col(NAMES[second]).isin(vals2) \
+        & ~(col(NAMES[narrow]) == v_narrow)
+    masks = {
+        "in": np.isin(table[:, wide], vals),
+        "andnot": np.isin(table[:, wide], vals)
+        & np.isin(table[:, second], vals2)
+        & (table[:, narrow] != v_narrow),
+    }
+    exprs = {"in": e_in, "andnot": e_diff}
+    g1, g2 = NAMES[mid[0]], NAMES[mid[1]]
+    out = []
+    for name, e in exprs.items():
+        out += [
+            (f"{name}.count", e, lambda q: q.count()),
+            (f"{name}.group_by", e, lambda q: q.group_by(g1).count()),
+            (f"{name}.top_k", e, lambda q: q.top_k(g2, 10)),
+            (f"{name}.top_k_sales", e, lambda q: q.top_k(g1, 10, "sales")),
+            (f"{name}.sum", e, lambda q: q.sum("sales")),
+            (f"{name}.avg", e, lambda q: q.avg("sales")),
+            (f"{name}.min", e, lambda q: q.min("sales")),
+            (f"{name}.max", e, lambda q: q.max("sales")),
+            (f"{name}.group2_sum", e,
+             lambda q: q.group_by(g1, g2).sum("sales")),
+            (f"{name}.rows100", e, lambda q: q.rows(limit=100)),
+        ]
+    return out, masks, (mid[0], mid[1])
+
+
+def oracle_check(results, masks, table, sales, groups):
+    """The answers against NumPy over the same (sorted) rows."""
+    ga, gb = groups
+    ca, cb = (int(table[:, c].max()) + 1 for c in groups)
+    for name, mask in masks.items():
+        s = sales[mask]
+        want = {
+            "count": int(mask.sum()),
+            "group_by": np.bincount(table[mask, ga], minlength=ca),
+            "sum": int(s.sum()),
+            "min": int(s.min()), "max": int(s.max()),
+            "avg": int(s.sum()) / int(mask.sum()),
+            "rows100": np.flatnonzero(mask)[:100],
+        }
+        g2 = np.zeros(ca * cb, dtype=np.int64)
+        np.add.at(g2, table[mask, ga] * cb + table[mask, gb], s)
+        want["group2_sum"] = g2.reshape(ca, cb)
+        for term, w in want.items():
+            got = results[f"{name}.{term}"]
+            if not np.array_equal(np.asarray(got), np.asarray(w)):
+                raise AssertionError(f"{name}.{term}: {got!r} != oracle")
+        top = results[f"{name}.top_k"]
+        counts = np.bincount(table[mask, gb], minlength=cb)
+        if [c for _, c in top] != sorted(counts, reverse=True)[:10]:
+            raise AssertionError(f"{name}.top_k does not match the oracle")
+
+
+def same(x, y) -> bool:
+    if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+        x, y = np.asarray(x), np.asarray(y)
+        return x.dtype == y.dtype and x.shape == y.shape and \
+            np.array_equal(x, y)
+    return type(x) is type(y) and x == y
+
+
+def run_backend(ds, stmts, backend, torch, wl):
+    """Drive every statement once under ``backend``; returns results,
+    per-statement host seconds and the kernel launches of this run."""
+    wl.launches = 0
+    results, secs = {}, {}
+    t0 = time.perf_counter()
+    for name, e, term in stmts:
+        s = time.perf_counter()
+        results[name] = term(ds.query(backend=backend).where(e))
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - s
+    total = time.perf_counter() - t0
+    launches = wl.launches
+    return results, secs, total, launches
+
+
+def main_path(label, n_rows, sort, torch, wl, synth, Dataset, col,
+              must_launch):
+    table, measures = make_table(synth, n_rows, SEED)
+    t0 = time.perf_counter()
+    ds = Dataset.from_rows(table, NAMES, sort=sort, measures=measures,
+                           device="cuda")
+    build_s = time.perf_counter() - t0
+    log(f"{label}: rows={n_rows} sort={sort} bitmaps={ds.index.n_bitmaps} "
+        f"size_words={ds.size_words} build_s={build_s}")
+    rows = ds.table
+    sales = ds.index.measure("sales")
+    stmts, masks, groups = statements(col, rows)
+    runs = {}
+    for backend in ("ewah", "kernel", "auto", "kernel"):
+        # the second "kernel" pass finds every operand cached on the card
+        key = backend if backend not in runs else backend + "_warm"
+        runs[key] = run_backend(ds, stmts, backend, torch, wl)
+        res, secs, total, launches = runs[key]
+        log(f"{label} backend={key}: launches={launches} total_s={total} "
+            + json.dumps(secs))
+    base = runs["ewah"][0]
+    for key, (res, _, _, _) in runs.items():
+        bad = [k for k in base if not same(res[k], base[k])]
+        if bad:
+            raise AssertionError(f"{label}: backend {key} differs from ewah "
+                                 f"on {bad}")
+    oracle_check(base, masks, rows, sales, groups)
+    if runs["ewah"][3] != 0:
+        raise AssertionError(f"{label}: ewah backend launched the kernel")
+    for key in must_launch:
+        if runs[key][3] <= 0:
+            raise AssertionError(f"{label}: backend {key} never launched "
+                                 f"word_logical")
+    # the host re-compression every kernel-path node ends in
+    from repro_torch.core.ewah import EWAH
+    e = next(e for name, e, _ in stmts if name == "andnot.count")
+    words = ds.query(backend="ewah").where(e).bitmap().to_words()
+    t0 = time.perf_counter()
+    EWAH.from_words(words, ds.n_rows)
+    log(f"{label}: host EWAH.from_words of the andnot result "
+        f"({len(words)} words) s={time.perf_counter() - t0}")
+    cache = ds.index.dense_cache
+    cache_bytes = sum(w.nbytes + f.nbytes for w, f in cache.values())
+    log(f"{label}: dense operand cache entries={len(cache)} "
+        f"bytes={cache_bytes} cuda_allocated={torch.cuda.memory_allocated()}")
+    log(f"{label}: oracle ok; backends agree")
+    return ds, stmts, {k: v[3] for k, v in runs.items()}
+
+
+def main_path_case(torch, wl, timer, ds, stmts):
+    """word_logical at the main path's widest launch, on its own words and
+    flags: recorded while the sorted table's 40-value OR runs under the
+    kernel backend (the first round of its bucketed 64-row stack)."""
+    widest = {}
+    real = wl.word_logical
+
+    def record(a, b, fa, fb, op="and"):
+        if a.numel() > widest.get("n", 0):
+            widest.update(n=a.numel(), args=(a.clone(), b.clone(), fa.clone(),
+                                             fb.clone(), op))
+        return real(a, b, fa, fb, op)
+
+    e = next(e for name, e, _ in stmts if name == "in.count")
+    wl.word_logical = record
+    try:
+        ds.query(backend="kernel").where(e).count()
+    finally:
+        wl.word_logical = real
+    a, b, fa, fb, op = widest["args"]
+    return word_logical_case(torch, wl, timer, a, b, op, "main_path",
+                             fa=fa, fb=fb)
+
+
+def profile_statements(torch, ds, stmts, backend, prefix):
+    """Device busy time of one statement group under the profiler: the
+    sum of device time over all kernels against the wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+    chosen = [(n, e, t) for n, e, t in stmts if n.startswith(prefix)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _, e, term in chosen:
+            term(ds.query(backend=backend).where(e))
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # device-side events only: an operator's row repeats its kernels' time
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(ev.self_device_time_total for ev in events)
+    top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:8]
+    log(f"profile backend={backend} statements={prefix}*: "
+        + json.dumps({
+            "wall_s": wall_s, "device_busy_s": device_us / 1e6,
+            "device_idle_share": 1 - device_us / 1e6 / wall_s,
+            "top_device": [[ev.key, ev.count, ev.self_device_time_total]
+                           for ev in top]}))
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke test runs "
+              "only on a CUDA card", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it "
+              f"from the root of a checkout", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import Dataset, col, synth
+    from repro_torch.core import cost_model
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import word_logical as wl
+
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    log(smi)
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    nvcc_out = _build.build("word_logical")
+    log(f"kernel build_s={time.perf_counter() - t0}")
+    log(f"--- nvcc word_logical\n{nvcc_out.strip()}\n---")
+
+    timer = Timer(torch)
+    kernel_phase(torch, ops, wl, timer)
+
+    ds, stmts, launches_sorted = main_path(
+        "sorted", ROWS_SORTED, "lex", torch, wl, synth, Dataset, col,
+        must_launch=("kernel", "kernel_warm"))
+    main_row = main_path_case(torch, wl, timer, ds, stmts)
+    profile_statements(torch, ds, stmts, "kernel", "andnot.")
+    del ds
+    torch.cuda.empty_cache()
+    ds, stmts, launches_unsorted = main_path(
+        "unsorted", ROWS_UNSORTED, "none", torch, wl, synth, Dataset, col,
+        must_launch=("kernel", "auto", "kernel_warm"))
+    profile_statements(torch, ds, stmts, "auto", "andnot.")
+    del ds
+
+    cm = cost_model.calibrate(device="cuda")
+    log("calibrate: " + json.dumps({"dense_threshold": cm.dense_threshold,
+                                    "source": cm.source,
+                                    "samples": cm.samples}))
+
+    launches = sum(launches_sorted.values()) + \
+        sum(launches_unsorted.values())
+    kernels = [{
+        "name": "word_logical", "route": "cuda",
+        "source": "src/repro_torch/csrc/word_logical.cu",
+        "replaces": "src/repro/kernels/word_logical.py:74",
+        "launches": launches,
+        "max_abs_err": main_row["max_abs_err"],
+        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": main_row["library_ms"],
+    }]
+    log(f"launches sorted={launches_sorted} unsorted={launches_unsorted}")
+    log(f"total_s={time.perf_counter() - t_start}")
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,538 @@
+"""Physical executor: run a plan over EWAH bitmaps or the device kernel.
+
+Per-node backend choice (Roaring's lesson, arXiv:1402.6407 — pick the
+physical representation per operation, by density, not globally): an n-ary
+AND/OR whose operands are mostly *dense* (compressed size close to the
+uncompressed word count, so EWAH's run-skipping buys nothing) is offloaded
+to the ``word_logical`` kernel as a dense tree reduction on the executor's
+device (``device``: ``"cuda"`` by default, ``"cpu"`` for the plain
+versions — asked for, never fallen back to); sparse
+operands stay on the compressed EWAH path — the vectorized run-list ops in
+``repro_torch.core.ewah`` — where cost is O(non-zero words) (Lemma 2).  The
+decision reads the operands' actual compressed sizes, which the index
+already tracks, against the **measured** crossover density from
+``repro_torch.core.cost_model`` (calibrated per machine; static 0.5 fallback
+when no calibration has run).
+
+Kernel-path operands are padded to power-of-two word-count buckets and
+cached *with* their per-row clean-tile flags, as tensors on the device,
+in the index's ``dense_cache`` (``("dense", device, col, bid, bucket)``
+entries): each bitmap is decompressed, flagged and uploaded once per
+device, not once per query or statement (see
+``repro_torch.kernels.ops``).  The reduction's one result row comes back
+to the host for ``EWAH.from_words``.
+
+``QueryBatch`` evaluates many expressions in one pass over a shared operand
+cache: physical bitmaps (and their bucketed dense decompressions + flags,
+when the kernel path is taken) are loaded once and reused across all plans
+in the batch.  Constant plan nodes memoize their full-length bitmaps in the
+same cache.  Sharded, live and pooled execution are not in this package
+yet (ROADMAP Queue 1 item 10).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops as kops
+from . import cost_model as _cm
+from . import measures as _ms
+from .ewah import EWAH, and_many, or_many
+from .expr import Expr
+from .index import BitmapIndex
+from .planner import (PAgg, PAnd, PBitmap, PConst, PCount, PDiff,
+                      PGroupAgg, PGroupCount, PNot, POr, PPinned, PlanNode,
+                      Planner, plan)
+
+# the historical static threshold, kept as the uncalibrated fallback; the
+# live value comes from ``repro_torch.core.cost_model`` (measured crossover when a
+# calibration has been persisted on this machine)
+DENSE_THRESHOLD = _cm.DEFAULT_DENSE_THRESHOLD
+
+Backend = str  # "auto" | "ewah" | "kernel"
+
+# caps on memoized subexpression results per operand cache: leaf entries
+# are bounded by the index itself, but composite results are keyed by query
+# shape, and a long-lived cache (a process-pool worker's, a persistent
+# batch cache) serving a varied stream would otherwise grow without bound —
+# both an entry cap and a byte budget over the cached EWAH payloads apply
+SUB_CACHE_ENTRIES = 512
+SUB_CACHE_BYTES = 32 << 20
+_SUB_ORDER_KEY = ("sub_order",)
+_SUB_BYTES_KEY = ("sub_bytes",)
+
+
+def _const_bitmap(index: BitmapIndex, value: bool,
+                  cache: Optional[Dict] = None) -> EWAH:
+    """All-ones / all-zeros bitmap over the index's rows, memoized per
+    (index rows, value) in the operand cache — constant plan nodes used to
+    rebuild a full-length EWAH on every evaluation."""
+    key = ("const", index.n_rows, value)
+    if cache is not None:
+        bm = cache.get(key)
+        if bm is not None:
+            return bm
+    bm = EWAH.from_bool(np.full(index.n_rows, value, dtype=bool))
+    if cache is not None:
+        cache[key] = bm
+    return bm
+
+
+class Executor:
+    def __init__(self, index: BitmapIndex, backend: Backend = "auto",
+                 cache: Optional[Dict] = None,
+                 dense_threshold: Optional[float] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        if backend not in ("auto", "ewah", "kernel"):
+            raise ValueError(f"backend must be auto, ewah or kernel, "
+                             f"got {backend!r}")
+        self.index = index
+        self.backend = backend
+        self.device = kops.resolve_device(device)
+        self.cache = cache if cache is not None else {}
+        # None -> the process cost model (calibrated crossover if available)
+        self.dense_threshold = (
+            _cm.get_default().dense_threshold
+            if dense_threshold is None else dense_threshold)
+        # subexpression-sharing accounting: composite plan nodes memoize
+        # their results in ``cache`` under their canonical plan key, so a
+        # subtree repeated across the statements of a batch (the group-by
+        # fan-out's shared filter, a dashboard's common clause) evaluates
+        # once; these counters make the sharing testable/observable
+        self.sub_hits = 0
+        self.sub_misses = 0
+
+    # -- operand loading (shared across a batch via ``cache``) ------------
+    def _load(self, node: PBitmap) -> EWAH:
+        key = ("bm", node.col, node.bitmap_id)
+        bm = self.cache.get(key)
+        if bm is None:
+            bm = self.index.bitmap(node.col, node.bitmap_id)
+            self.cache[key] = bm
+        return bm
+
+    def _dense_operand(self, node: PlanNode, bm: EWAH):
+        """(bucket-padded words, per-row clean flags) on the device, for
+        the kernel path.
+
+        A physical bitmap's pair is cached in the index's ``dense_cache``
+        per device *and bucket*, so it is decompressed, flagged and
+        uploaded once for the index's lifetime, whatever the statement or
+        backend; composite operands are built per use."""
+        cp = kops.bucket_cols(bm.n_words_uncompressed)
+        if isinstance(node, PBitmap):
+            key = ("dense", str(self.device), node.col, node.bitmap_id, cp)
+            cache = self.index.dense_cache
+            hit = cache.get(key)
+            if hit is None:
+                hit = self._pad_and_flags(bm, cp, self.device)
+                cache[key] = hit
+            return hit
+        return self._pad_and_flags(bm, cp, self.device)
+
+    @staticmethod
+    def _pad_and_flags(bm: EWAH, cp: int, device: torch.device):
+        w = bm.to_words()
+        if len(w) < cp:
+            w = np.pad(w, (0, cp - len(w)))
+        if bm._cont is not None and bm._words is None:
+            # container-backed: flags come off the chunk directory (EMPTY/
+            # FULL/ARRAY chunks never scan words), bit-identical to below
+            flags = kops.container_row_flags(bm._cont, len(w))
+        else:
+            flags = kops.np_row_flags(w)
+        return (kops.to_device_words(w, device),
+                torch.from_numpy(flags).to(device))
+
+    # -- evaluation --------------------------------------------------------
+    def run(self, node: PlanNode) -> EWAH:
+        """Evaluate a plan tree to an EWAH result.
+
+        The top-level statement *reads* the subexpression cache (it may be
+        a subtree of an earlier statement) but does not write its own
+        result into it — whole-result caching belongs to the dedicated
+        result LRUs, and an operand cache that also memoized roots would
+        silently turn repeat-latency measurements into dictionary lookups.
+        Strict subtrees are cached (see ``_run``)."""
+        return self._run(node, write=False)
+
+    def _run(self, node: PlanNode, write: bool = True) -> EWAH:
+        if isinstance(node, PConst):
+            return _const_bitmap(self.index, node.value, self.cache)
+        if isinstance(node, PBitmap):
+            return self._load(node)
+        if isinstance(node, PPinned):
+            # an externally-evaluated bitmap (live-ingest tombstone masks);
+            # its ckey is None, so no enclosing subtree caches around it
+            return node.bitmap
+        # composite subtrees memoize by canonical plan key: a subexpression
+        # shared across a batch's statements (same ``ckey``, possibly under
+        # commutative reordering) is evaluated exactly once per cache
+        key = ("sub", node.ckey) if node.ckey is not None else None
+        if key is not None:
+            hit = self.cache.get(key)
+            if hit is not None:
+                self.sub_hits += 1
+                return hit
+            self.sub_misses += 1
+        bm = self._run_composite(node)
+        if key is not None and write:
+            # FIFO-bounded by entries *and* result bytes: the eviction
+            # bookkeeping lives in the cache dict itself so the bounds
+            # follow the cache's lifetime, not the (per-call) executor's.
+            # Races on a shared dict are as benign as the rest of the
+            # operand cache — worst case a subtree recomputes once.
+            order = self.cache.setdefault(_SUB_ORDER_KEY, [])
+            if key not in self.cache:
+                order.append(key)
+                self.cache[key] = bm
+                total = self.cache.get(_SUB_BYTES_KEY, 0) + bm.size_bytes
+                while order and (len(order) > SUB_CACHE_ENTRIES
+                                 or total > SUB_CACHE_BYTES):
+                    old = self.cache.pop(order.pop(0), None)
+                    if old is not None:
+                        total -= old.size_bytes
+                self.cache[_SUB_BYTES_KEY] = max(total, 0)
+            else:
+                self.cache[key] = bm
+        return bm
+
+    def _run_composite(self, node: PlanNode) -> EWAH:
+        if isinstance(node, PNot):
+            return ~self._run(node.child)
+        if isinstance(node, PDiff):
+            return self._run_diff(node)
+        assert isinstance(node, (PAnd, POr))
+        op = "and" if isinstance(node, PAnd) else "or"
+        children = [(ch, self._run(ch)) for ch in node.children]
+        if self._use_kernel([bm for _, bm in children]):
+            return self._reduce_kernel(children, op)
+        bms = [bm for _, bm in children]
+        return and_many(bms) if op == "and" else or_many(bms)
+
+    # -- aggregation (compressed domain) -----------------------------------
+    def run_count(self, node: PCount) -> int:
+        """COUNT(*): the filter's memoized compressed-domain popcount —
+        no row ids, no result materialization."""
+        child = node.child
+        if isinstance(child, PConst):
+            return self.index.n_rows if child.value else 0
+        # the filter is a *subexpression* of the count statement: cached,
+        # so a row query or group-by over the same filter reuses it
+        return self._run(child).count()
+
+    # a group bitmap whose literal pool would expand to far more intervals
+    # than the filter exposes is cheaper to intersect pairwise: past this
+    # expansion-to-filter-intervals ratio the run-aligned
+    # ``EWAH.and_count`` beats contributing the (huge) expansion to the
+    # batched coverage pass — per query, cold or warm
+    LIT_INTERVAL_CUTOFF = 4
+
+    def run_group_count(self, node: PGroupCount) -> np.ndarray:
+        """Per-value counts of one column under the node's filter.
+
+        Without a filter each group is its bitmap's memoized popcount.
+        With one, the filter evaluates once (shared across the whole
+        fan-out through the operand cache) and every group intersects it in
+        the compressed domain, by one of two kernels: run-dominated bitmaps
+        (the sorted-table case) contribute their set-bit intervals —
+        clean-one runs plus literal expansions, memoized per bitmap — to a
+        batch scored against the filter's interval coverage function in two
+        vectorized ``searchsorted`` passes over all groups at once;
+        literal-heavy bitmaps, whose interval expansion would approach one
+        interval per set bit, use the pairwise ``EWAH.and_count`` (aligned
+        run-lists, popcount without materializing the AND).  Nothing is
+        decompressed to rows and no result bitmap exists, per group or
+        globally.
+        """
+        out = np.zeros(len(node.groups), dtype=np.int64)
+        filt = node.filter
+        if isinstance(filt, PConst):
+            if not filt.value:
+                return out
+            filt = None
+        if filt is None:
+            for g, gn in enumerate(node.groups):
+                if isinstance(gn, PConst):
+                    out[g] = self.index.n_rows if gn.value else 0
+                else:
+                    out[g] = self._run(gn).count()
+            return out
+        fbm = self._run(filt)
+        # the filter always takes the interval view, even when
+        # literal-heavy: its expansion is paid once (memoized on the EWAH,
+        # which the subexpression cache keeps alive) and the per-query
+        # coverage passes scan *group* intervals with only a log factor in
+        # the filter's interval count — whereas escaping a fragmented
+        # filter to pairwise ``and_count`` costs O(filter runs) per group,
+        # which is catastrophic for high-cardinality group-bys
+        fs, fe = fbm.set_intervals()
+        if len(fs) == 0:
+            return out
+        starts, ends, gids = [], [], []
+        pair_budget = self.LIT_INTERVAL_CUTOFF * (len(fs) + 32)
+        for g, gn in enumerate(node.groups):
+            gbm = self._run(gn)
+            rl = gbm.runlist()
+            # 32 * literal words bounds the group's expanded interval count
+            if 32 * len(rl.lits) > pair_budget + rl.n_intervals:
+                out[g] = fbm.and_count(gbm)
+                continue
+            s, e = gbm.set_intervals()
+            if len(s):
+                starts.append(s)
+                ends.append(e)
+                gids.append(np.full(len(s), g, dtype=np.int64))
+        if not starts:
+            return out
+        S = np.concatenate(starts)
+        E = np.concatenate(ends)
+        G = np.concatenate(gids)
+        w = _interval_coverage(fs, fe, E) - _interval_coverage(fs, fe, S)
+        out += np.bincount(G, weights=w,
+                           minlength=len(node.groups)).astype(np.int64)
+        return out
+
+    def _filter_intervals(self, filt: Optional[PlanNode]):
+        """A filter node's set-bit intervals, ``None`` filters covering all
+        rows; returns empty arrays for an all-false filter."""
+        if isinstance(filt, PConst):
+            if not filt.value:
+                return (np.empty(0, dtype=np.int64),
+                        np.empty(0, dtype=np.int64))
+            filt = None
+        if filt is None:
+            n = self.index.n_rows
+            if not n:
+                return (np.empty(0, dtype=np.int64),
+                        np.empty(0, dtype=np.int64))
+            return (np.asarray([0], dtype=np.int64),
+                    np.asarray([n], dtype=np.int64))
+        return self._run(filt).set_intervals()
+
+    def run_agg(self, node: PAgg):
+        """Scalar ``(sum, count, min, max)`` of a measure under the node's
+        filter: the filter's run intervals slice the mmap'd measure array
+        directly (one gather, three reductions) — no row ids, no result
+        bitmap, no row reconstruction."""
+        values = self.index.measure(node.measure)
+        fs, fe = self._filter_intervals(node.filter)
+        return _ms.reduce_intervals(values, fs, fe)
+
+    def run_group_agg(self, node: PGroupAgg) -> Dict:
+        """Grouped aggregates over one or two columns in the filtered
+        domain.
+
+        The filter's intervals define a dense coordinate space of
+        ``count(filter)`` positions; the measure is gathered into it once
+        and prefix-summed, so every group's sum is two subtractions and its
+        min/max one segmented ``reduceat``.  Each grouping column's rank
+        bitmaps *partition* the rows (every row holds exactly one value),
+        so their interval images partition the filtered domain: one column
+        accumulates per-rank segments directly; two columns sweep the
+        *elementary segments* induced by both columns' boundaries, binning
+        each into its ``(rank_a, rank_b)`` cell — cost O(selected rows +
+        intervals), never O(card_a * card_b * rows).
+        """
+        cards = tuple(len(g) for g in node.groups)
+        name = node.measure
+        values = self.index.measure(name) if name is not None else None
+        dt = _ms.measure_dtype_str(values) if values is not None else None
+        out = _ms.empty_group_agg(node.cols, cards, name, dt)
+        fs, fe = self._filter_intervals(node.filter)
+        if not len(fs):
+            return out
+        F = int((fe - fs).sum())
+        fvals = _ms.gather(values, fs, fe) if values is not None else None
+        pref = _ms.prefix_sums(fvals) if fvals is not None else None
+        # per-column segment catalogs in filtered coordinates, sorted by
+        # start (segments of one column are disjoint and cover [0, F))
+        catalogs = []
+        for groups in node.groups:
+            ss, es, rs = [], [], []
+            for g, gn in enumerate(groups):
+                s, e = self._run(gn).set_intervals()
+                if not len(s):
+                    continue
+                cs = _ms.interval_coverage(fs, fe, s)
+                ce = _ms.interval_coverage(fs, fe, e)
+                keep = ce > cs
+                if not keep.any():
+                    continue
+                ss.append(cs[keep])
+                es.append(ce[keep])
+                rs.append(np.full(int(keep.sum()), g, dtype=np.int64))
+            if not ss:
+                return out  # a partition with no coverage means F == 0
+            S = np.concatenate(ss)
+            E = np.concatenate(es)
+            R = np.concatenate(rs)
+            order = np.argsort(S, kind="stable")
+            catalogs.append((S[order], E[order], R[order]))
+        if len(catalogs) == 1:
+            S, E, R = catalogs[0]
+            cell = R
+            size = cards[0]
+        else:
+            # elementary segments: boundaries wherever either column
+            # changes rank; each segment is homogeneous in both columns
+            (sa, _, ra), (sb, _, rb) = catalogs
+            S = np.unique(np.concatenate([sa, sb]))
+            E = np.concatenate([S[1:], [F]]).astype(np.int64)
+            ia = np.searchsorted(sa, S, side="right") - 1
+            ib = np.searchsorted(sb, S, side="right") - 1
+            cell = ra[ia] * cards[1] + rb[ib]
+            size = cards[0] * cards[1]
+        out["counts"] += np.bincount(cell, weights=(E - S),
+                                     minlength=size).astype(np.int64)
+        if values is not None:
+            # np.add.at (not bincount) keeps int64 sums exact past 2^53
+            np.add.at(out["sums"], cell, pref[E] - pref[S])
+            mins, maxs = _ms.segmented_min_max(fvals, S, E)
+            np.minimum.at(out["mins"], cell, mins)
+            np.maximum.at(out["maxs"], cell, maxs)
+        return out
+
+    def _run_diff(self, node: PDiff) -> EWAH:
+        """AND(pos) \\ OR(neg) via EWAH's native andnot — negated operands
+        never materialize their complements."""
+        pos = [(ch, self._run(ch)) for ch in node.pos]
+        neg = [(ch, self._run(ch)) for ch in node.neg]
+        if self._use_kernel([bm for _, bm in pos + neg]):
+            pw, pf = zip(*[self._dense_operand(n, bm) for n, bm in pos])
+            nw, nf = zip(*[self._dense_operand(n, bm) for n, bm in neg])
+            a = kops.logical_reduce(torch.stack(pw), op="and",
+                                    row_flags=torch.stack(pf))
+            b = kops.logical_reduce(torch.stack(nw), op="or",
+                                    row_flags=torch.stack(nf))
+            out = kops.to_numpy_words(
+                kops.word_logical(a[None, :], b[None, :], "andnot")[0])
+            n_words = pos[0][1].n_words_uncompressed
+            return EWAH.from_words(out[:n_words], pos[0][1].n_bits)
+        acc = and_many([bm for _, bm in pos])
+        for _, bm in neg:
+            acc = acc.andnot(bm)
+        return acc
+
+    def _use_kernel(self, bms: Sequence[EWAH]) -> bool:
+        if self.backend == "ewah":
+            return False
+        n_words = bms[0].n_words_uncompressed
+        if n_words == 0:
+            # zero-row operands (e.g. an empty shard): nothing to reduce
+            # densely, and the kernel has no zero-size tiles
+            return False
+        if self.backend == "kernel":
+            return True
+        density = sum(bm.size_words for bm in bms) / (len(bms) * n_words)
+        return len(bms) >= 2 and density >= self.dense_threshold
+
+    def _reduce_kernel(self, children, op: str) -> EWAH:
+        ws, fs = zip(*[self._dense_operand(node, bm) for node, bm in children])
+        out = kops.to_numpy_words(kops.logical_reduce(
+            torch.stack(ws), op=op, row_flags=torch.stack(fs)))
+        n_bits = children[0][1].n_bits
+        n_words = children[0][1].n_words_uncompressed
+        return EWAH.from_words(out[:n_words], n_bits)
+
+
+def execute(index: BitmapIndex, e: Union[Expr, PlanNode],
+            backend: Backend = "auto", optimize: bool = True,
+            cache: Optional[Dict] = None, device="cuda") -> EWAH:
+    """Plan (unless given a plan) and evaluate one expression -> EWAH."""
+    node = plan(index, e, optimize=optimize) if isinstance(e, Expr) else e
+    return Executor(index, backend=backend, cache=cache,
+                    device=device).run(node)
+
+
+def execute_rows(index: BitmapIndex, e: Union[Expr, PlanNode],
+                 backend: Backend = "auto", optimize: bool = True,
+                 device="cuda") -> np.ndarray:
+    """Evaluate and return matching row ids (sorted)."""
+    return execute(index, e, backend=backend, optimize=optimize,
+                   device=device).set_bits()
+
+
+def _interval_coverage(fs: np.ndarray, fe: np.ndarray,
+                       xs: np.ndarray) -> np.ndarray:
+    """Covered length below each ``x`` of the sorted disjoint intervals
+    ``[fs, fe)`` — the filter's prefix-popcount function, evaluated for all
+    group-interval endpoints in one ``searchsorted`` pass."""
+    pref = np.concatenate(([0], np.cumsum(fe - fs)))
+    i = np.searchsorted(fs, xs, side="right") - 1
+    i0 = np.maximum(i, 0)
+    inside = np.clip(xs - fs[i0], 0, fe[i0] - fs[i0])
+    return np.where(i >= 0, pref[i0] + inside, 0)
+
+
+def execute_count(index: BitmapIndex, e: Optional[Expr] = None,
+                  backend: Backend = "auto", optimize: bool = True,
+                  cache: Optional[Dict] = None, device="cuda") -> int:
+    """COUNT(*) of a filter (``e=None`` counts all rows), computed in the
+    compressed domain."""
+    node = Planner(index, optimize=optimize).plan_count(e)
+    return Executor(index, backend=backend, cache=cache,
+                    device=device).run_count(node)
+
+
+def execute_group_count(index: BitmapIndex, col, e: Optional[Expr] = None,
+                        backend: Backend = "auto", optimize: bool = True,
+                        cache: Optional[Dict] = None,
+                        device="cuda") -> np.ndarray:
+    """GROUP BY ``col`` COUNT(*) under filter ``e`` -> int64 array of
+    length ``card(col)`` (a ``np.bincount``-shaped result)."""
+    node = Planner(index, optimize=optimize).plan_group_count(col, e)
+    return Executor(index, backend=backend, cache=cache,
+                    device=device).run_group_count(node)
+
+
+def execute_agg(index: BitmapIndex, measure: str, e: Optional[Expr] = None,
+                backend: Backend = "auto", optimize: bool = True,
+                cache: Optional[Dict] = None, device="cuda"):
+    """Scalar ``(sum, count, min, max)`` of ``measure`` under filter ``e``
+    (``e=None`` aggregates all rows), computed by interval-slicing the
+    measure sidecar."""
+    node = Planner(index, optimize=optimize).plan_agg(measure, e)
+    return Executor(index, backend=backend, cache=cache,
+                    device=device).run_agg(node)
+
+
+def execute_group_agg(index: BitmapIndex, measure: Optional[str], cols,
+                      e: Optional[Expr] = None,
+                      backend: Backend = "auto", optimize: bool = True,
+                      cache: Optional[Dict] = None, device="cuda") -> Dict:
+    """GROUP BY one or two columns, aggregating ``measure`` (or counting
+    rows when ``measure`` is ``None``) under filter ``e``.  Returns the
+    partial-aggregate dict of ``Executor.run_group_agg``; project it onto
+    one op with ``repro_torch.core.measures.finalize_group``."""
+    node = Planner(index, optimize=optimize).plan_group_agg(measure, cols, e)
+    return Executor(index, backend=backend, cache=cache,
+                    device=device).run_group_agg(node)
+
+
+class QueryBatch:
+    """Evaluate many expressions in one pass sharing loaded operands.
+
+    Plans are built up front, then all plans execute against one operand
+    cache, so a bitmap referenced by several queries (the common case for
+    dashboard-style workloads: same dimensions, different slices) is
+    concatenated from its partitions exactly once.
+    """
+
+    def __init__(self, exprs: Sequence[Expr]):
+        self.exprs = list(exprs)
+
+    def execute(self, index: BitmapIndex, backend: Backend = "auto",
+                optimize: bool = True, device="cuda") -> List[EWAH]:
+        plans = [plan(index, e, optimize=optimize) for e in self.exprs]
+        ex = Executor(index, backend=backend, cache={}, device=device)
+        return [ex.run(p) for p in plans]
+
+    def execute_rows(self, index: BitmapIndex, backend: Backend = "auto",
+                     optimize: bool = True,
+                     device="cuda") -> List[np.ndarray]:
+        return [bm.set_bits()
+                for bm in self.execute(index, backend=backend,
+                                       optimize=optimize, device=device)]

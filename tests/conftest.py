@@ -90,3 +90,8 @@ except ModuleNotFoundError:
     _hyp.HealthCheck = types.SimpleNamespace(all=staticmethod(lambda: []))
     sys.modules["hypothesis"] = _hyp
     sys.modules["hypothesis.strategies"] = _st
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; the test skips without one")
