@@ -4,25 +4,42 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` with
-``nvcc`` (one source so far), holds each kernel bit-equal to
-its plain PyTorch version on the card at the main path's shapes and times
-both, then drives the main path through the entry points a user calls:
+``nvcc`` (one process per source, all started together), holds each kernel
+against its plain PyTorch version on the card at its main path's shapes and
+times kernel, plain version and the PyTorch library call, then drives the
+port's two main paths through the entry points a user calls:
+
+1. the bitmap engine, ``word_logical``:
 
     Dataset.from_rows(rows, names, sort=..., measures=..., device="cuda")
         .query(backend=...).where(e) -> count / group_by / top_k /
                                         sum / avg / min / max / rows
 
-on the paper's section 4.1 uniform table (4 columns of cardinality 100,
-200, 400 and 800; 2^22 rows sorted, 2^21 rows unsorted), under the
-``ewah``, ``kernel`` and ``auto`` backends.  The three backends must agree
-and every answer must match a NumPy oracle over the same rows.  Each
-kernel's launch counter is set to 0 just before a main-path run and read
-just after it.
+   on the paper's section 4.1 uniform table (4 columns of cardinality 100,
+   200, 400 and 800; 2^22 rows sorted, 2^21 rows unsorted), under the
+   ``ewah``, ``kernel`` and ``auto`` backends.  The three backends must
+   agree and every answer must match a NumPy oracle over the same rows.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``.  Exits non-zero, with no result
-line, when CUDA is unavailable or the port's sources are not beside it.
-Imports nothing of JAX or of the reference package.
+2. LM training with EWAH gradient compression, ``block_sqnorms``:
+
+    python -m repro_torch.launch.train --arch qwen2-0.5b --full \
+        --compress 0.25 --steps 5 --batch-size 8 --seq-len 128
+
+   qwen2-0.5b at full width and depth (494M parameters, weights from a
+   seed, the synthetic bitmap-indexed corpus).  Every loss must be finite,
+   the supervisor must not have restarted, and the kernel must have run
+   once per step.  Then: one step under the profiler (device idle share),
+   the keep mask from the kernel's norms against the plain norms' on one
+   full-width gradient, and a restart on the card (reduced config,
+   checkpoint every 2 steps, a failure injected at step 3) whose losses
+   must match an uninterrupted run.
+
+Each kernel's launch counter is set to 0 just before a main-path run and
+read just after it.  Prints the card's name and power limit, a
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
+Exits non-zero, with no result line, when CUDA is unavailable or the
+port's sources are not beside it.  Imports nothing of JAX or of the
+reference package.
 """
 from __future__ import annotations
 
@@ -31,6 +48,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -45,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA data sheet
 TILE_BYTES = 8 * 1024 * 4     # one (8, 1024) tile of 32-bit words
 NAMES = ["c0", "c1", "c2", "c3"]
 REPS = 30
+QWEN2_PARAMS = 494_032_768    # qwen2-0.5b's parameter count: its flat gradient
 
 
 def log(*parts):
@@ -399,6 +418,218 @@ def profile_statements(torch, ds, stmts, backend, prefix):
                            for ev in top]}))
 
 
+# -- block_sqnorms kernel phase -------------------------------------------------
+
+def block_sqnorms_case(torch, gc, timer, g, label):
+    """Check one block_sqnorms call against the plain version on the card
+    (rtol 1e-5: float32 sums of 256 positive squares in another order) and
+    time kernel, plain version and ``torch.linalg.vecdot``.  ``g`` is what
+    the caller hands the wrapper; the wrapper casts and pads it."""
+    n = g.numel()
+    got = gc.block_sqnorms(g)
+    torch.cuda.synchronize()
+    gp = torch.nn.functional.pad(g.float(), (0, -n % gc.VALUES_PER_BLOCK))
+    g2 = gp.view(-1, gc.VALUES_PER_BLOCK)
+    want = gc.block_sqnorms_plain(gp)
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    if not torch.allclose(got, want, rtol=1e-5, atol=0):
+        raise AssertionError(f"block_sqnorms {label}: kernel != plain "
+                             f"(max abs err {err}, max rel err {rel})")
+    n_blocks = got.numel()
+    row = {
+        "n": n, "dtype": str(g.dtype), "blocks": n_blocks, "label": label,
+        "max_abs_err": err, "max_rel_err": rel,
+        "ms": timer.ms(lambda: gc.block_sqnorms(g)),
+        "plain_ms": timer.ms(lambda: gc.block_sqnorms_plain(gp)),
+        # each input value read once at its own width, each norm written
+        "bound_ms": bound_ms(n * g.element_size() + n_blocks * 4),
+        "bound_by": "bytes",
+        "library_ms": timer.ms(lambda: torch.linalg.vecdot(g2, g2, dim=1)),
+        # one torch.sum over the same float32 values: what a plain read of
+        # these bytes takes on this card, beside the bound
+        "read_ms": timer.ms(lambda: gp.sum()),
+    }
+    log("block_sqnorms_case", json.dumps(row))
+    return row
+
+
+def block_sqnorms_phase(torch, gc, timer, n_params):
+    """The main path's shape (every parameter of qwen2-0.5b, padded to a
+    block multiple as ``sparsify`` pads it) and small ragged shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    n_main = -(-n_params // gc.VALUES_PER_BLOCK) * gc.VALUES_PER_BLOCK
+    g = torch.randn(n_main, generator=gen, device="cuda")
+    g[n_params:] = 0
+    main_row = block_sqnorms_case(torch, gc, timer, g, "main_path")
+    del g
+    for n in (256, 25_600, 25_617):
+        block_sqnorms_case(torch, gc, timer, torch.randn(
+            n, generator=gen, device="cuda"), "small")
+    block_sqnorms_case(torch, gc, timer, torch.randn(
+        25_617, generator=gen, device="cuda").half(), "float16")
+    torch.cuda.empty_cache()
+    return main_row
+
+
+# -- training path --------------------------------------------------------------
+
+TRAIN_STEPS = 5
+TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--full", "--compress", "0.25",
+              "--steps", str(TRAIN_STEPS), "--batch-size", "8",
+              "--seq-len", "128", "--ckpt-every", "1000", "--device", "cuda"]
+
+
+def training_path(torch, gc, wl, ckpt_dir):
+    """The slice's main run through ``repro_torch.launch.train``'s entry;
+    returns (model, params, report, block_sqnorms launches)."""
+    from repro_torch.launch import train as launch_train
+    torch.cuda.reset_peak_memory_stats()
+    gc.launches = 0
+    wl.launches = 0
+    t0 = time.perf_counter()
+    model, params, report = launch_train.main(
+        TRAIN_ARGS + ["--ckpt-dir", ckpt_dir])
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches, wl_launches = gc.launches, wl.launches
+    n_params = sum(p.numel() for p in params.values())
+    log("train: " + json.dumps({
+        "arch": model.cfg.name, "params": n_params,
+        "steps_run": report.steps_run, "restarts": report.restarts,
+        "losses": report.losses, "step_s": report.step_times,
+        "total_s": total_s,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "block_sqnorms_launches": launches,
+        "word_logical_launches": wl_launches}))
+    losses = np.asarray(report.losses)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"train: a loss is not finite: {report.losses}")
+    if report.restarts != 0:
+        raise AssertionError(f"train: the supervisor restarted "
+                             f"{report.restarts} times")
+    if report.steps_run != TRAIN_STEPS or launches != TRAIN_STEPS:
+        raise AssertionError(f"train: {report.steps_run} steps, "
+                             f"{launches} block_sqnorms launches; expected "
+                             f"{TRAIN_STEPS} of each")
+    log(f"train: loss first={report.losses[0]} last={report.losses[-1]}")
+    return model, params, report, launches
+
+
+def train_batch(torch, model, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return {"tokens": torch.randint(0, model.cfg.vocab, (8, 128),
+                                    generator=gen, device="cuda",
+                                    dtype=torch.int32)}
+
+
+def profile_train_step(torch, model, params):
+    """Device busy time of one compressed training step at full width
+    under the profiler, after one warm step outside it."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import grad_compression as gcomp
+    from repro_torch.train.loop import make_compressed_train_step
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    opt = AdamW(AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+    state = {"inner": opt.init(params), "error": gcomp.init_error(params)}
+    step = make_compressed_train_step(model, opt, 0.25)
+    batch = train_batch(torch, model, SEED + 2)
+    params, state, loss = step(params, state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(ev.self_device_time_total for ev in events)
+    top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:12]
+    sq = [ev for ev in events if "block_sqnorms" in ev.key]
+    log("profile train step: " + json.dumps({
+        "wall_s": wall_s, "device_busy_s": device_us / 1e6,
+        "device_idle_share": 1 - device_us / 1e6 / wall_s,
+        "block_sqnorms_device_us": sum(ev.self_device_time_total
+                                       for ev in sq),
+        "kernel_launches": sum(ev.count for ev in events),
+        "top_device": [[ev.key[:80], ev.count, ev.self_device_time_total]
+                       for ev in top]}))
+    del state
+
+
+def mask_phase(torch, gc, model, params):
+    """The keep mask from the kernel's norms against the mask from the
+    plain norms on one full-width gradient: any difference may only fall
+    on a block whose norm is within rtol 1e-5 of either threshold."""
+    from repro_torch.distributed import grad_compression as gcomp
+    from repro_torch.train.step import value_and_grad
+    _, grads = value_and_grad(model, params, train_batch(torch, model,
+                                                         SEED + 3))
+    flat, _ = gcomp._flatten(grads)
+    del grads
+    fpad = torch.nn.functional.pad(flat, (0, -flat.numel() % 256))
+    del flat
+    norms_k = gc.block_sqnorms(fpad)
+    norms_p = gc.block_sqnorms_plain(fpad)
+    k = max(int(norms_k.numel() * 0.25), 1)
+    th_k = torch.topk(norms_k, k).values[-1]
+    th_p = torch.topk(norms_p, k).values[-1]
+    mask_k, mask_p = norms_k >= th_k, norms_p >= th_p
+    diff = mask_k != mask_p
+    near = ((norms_p - th_p).abs() <= 1e-5 * th_p) \
+        | ((norms_k - th_k).abs() <= 1e-5 * th_k)
+    out = {"blocks": norms_k.numel(), "kept": int(mask_k.sum()),
+           "differ": int(diff.sum()), "differ_off_threshold":
+           int((diff & ~near).sum()), "near_threshold": int(near.sum()),
+           "max_rel_err": float(((norms_k - norms_p).abs()
+                                 / norms_p.clamp_min(1e-30)).max())}
+    log("mask on one gradient: " + json.dumps(out))
+    if out["differ_off_threshold"]:
+        raise AssertionError(f"mask: {out['differ_off_threshold']} blocks "
+                             f"differ away from the threshold")
+
+
+def restart_phase(torch, ckpt_root):
+    """Reduced qwen2-0.5b on the card: a failure injected at step 3 and a
+    restore from the step-2 checkpoint replay the uninterrupted run's
+    losses (rtol 1e-3: the embedding backward sums with atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import BitmapDataPipeline, Corpus
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.loop import TrainConfig, train
+    cfg = get_config("qwen2-0.5b").reduced()
+    corpus = Corpus.synthetic(n_docs=256, doc_len=64, vocab=cfg.vocab,
+                              seed=SEED)
+    model = LM(cfg, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    start = {k: v.detach().clone() for k, v in model.init(gen).items()}
+    runs = {}
+    for label, fail in (("uninterrupted", None), ("restarted", 3)):
+        tcfg = TrainConfig(steps=6, batch_size=4, seq_len=64,
+                           ckpt_dir=str(Path(ckpt_root) / label),
+                           ckpt_every=2, grad_compression=0.25, lr=1e-3)
+        _, runs[label] = train(model, tcfg,
+                               BitmapDataPipeline(corpus, device="cuda"),
+                               params=start, inject_failure_at=fail,
+                               device="cuda")
+    ref, rep = runs["uninterrupted"], runs["restarted"]
+    want = ref.losses[:3] + ref.losses[2:]
+    log("restart: " + json.dumps({"uninterrupted": ref.losses,
+                                  "restarted": rep.losses,
+                                  "restarts": rep.restarts}))
+    if rep.restarts != 1 or ref.restarts != 0:
+        raise AssertionError(f"restart: restarts {ref.restarts}, "
+                             f"{rep.restarts}; expected 0, 1")
+    if not np.allclose(rep.losses, want, rtol=1e-3, atol=0):
+        raise AssertionError("restart: the replayed losses differ from the "
+                             "uninterrupted run's")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -413,6 +644,7 @@ def main() -> int:
     from repro_torch.core import Dataset, col, synth
     from repro_torch.core import cost_model
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import grad_compress as gc
     from repro_torch.kernels import word_logical as wl
 
     t_start = time.perf_counter()
@@ -424,12 +656,14 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    nvcc_out = _build.build("word_logical")
-    log(f"kernel build_s={time.perf_counter() - t0}")
-    log(f"--- nvcc word_logical\n{nvcc_out.strip()}\n---")
+    nvcc_out = _build.build("word_logical", "grad_compress")
+    log(f"kernel build_s={time.perf_counter() - t0} (parallel nvcc)")
+    for name, out in nvcc_out.items():
+        log(f"--- nvcc {name}\n{out.strip()}\n---")
 
     timer = Timer(torch)
     kernel_phase(torch, ops, wl, timer)
+    sq_row = block_sqnorms_phase(torch, gc, timer, QWEN2_PARAMS)
 
     ds, stmts, launches_sorted = main_path(
         "sorted", ROWS_SORTED, "lex", torch, wl, synth, Dataset, col,
@@ -443,6 +677,19 @@ def main() -> int:
         must_launch=("kernel", "auto", "kernel_warm"))
     profile_statements(torch, ds, stmts, "auto", "andnot.")
     del ds
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
+        model, params, report, sq_launches = training_path(
+            torch, gc, wl, str(Path(ckpt_root) / "main"))
+        n_params = sum(p.numel() for p in params.values())
+        if n_params != QWEN2_PARAMS:
+            raise AssertionError(f"qwen2-0.5b has {n_params} parameters, "
+                                 f"the kernel phase timed {QWEN2_PARAMS}")
+        profile_train_step(torch, model, params)
+        mask_phase(torch, gc, model, params)
+        del model, params
+        torch.cuda.empty_cache()
+        restart_phase(torch, ckpt_root)
 
     cm = cost_model.calibrate(device="cuda")
     log("calibrate: " + json.dumps({"dense_threshold": cm.dense_threshold,
@@ -460,8 +707,18 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "block_sqnorms", "route": "cuda",
+        "source": "src/repro_torch/csrc/grad_compress.cu",
+        "replaces": "src/repro/kernels/grad_compress.py:27",
+        "launches": sq_launches,
+        "max_abs_err": sq_row["max_abs_err"],
+        "ms": sq_row["ms"], "plain_ms": sq_row["plain_ms"],
+        "bound_ms": sq_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": sq_row["library_ms"],
     }]
-    log(f"launches sorted={launches_sorted} unsorted={launches_unsorted}")
+    log(f"launches sorted={launches_sorted} unsorted={launches_unsorted} "
+        f"block_sqnorms={sq_launches}")
     log(f"total_s={time.perf_counter() - t_start}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

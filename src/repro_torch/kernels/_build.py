@@ -41,25 +41,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h}.so"
 
 
-def build(name: str) -> str:
-    """Build ``csrc/<name>.cu`` unless it is built; returns the compiler's
-    output ("" when nothing was built).  The library is written to a
-    temporary name and renamed into place, so an interrupted build never
-    leaves a partial file."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    proc = subprocess.run(
-        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+def build(*names: str) -> Dict[str, str]:
+    """Build each ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
+    per source, all started together; returns each name's compiler output
+    ("" when nothing was built).  Each library is written to a temporary
+    name and renamed into place, so an interrupted build never leaves a
+    partial file."""
+    procs = {}
+    outputs = {name: "" for name in names}
+    for name in names:
+        out = library_path(name)
+        if out.exists() or name in procs:
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        procs[name] = (out, tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        outputs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu (exit "
+                          f"{proc.returncode}):\n{outputs[name]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outputs
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,4 +1,6 @@
-"""Public wrappers around the word-logical kernel, with the padding glue.
+"""Public wrappers around the word-logical kernel, with the padding glue,
+and the gradient-compression kernel's ``block_sqnorms`` and
+``topk_block_mask`` (defined in ``grad_compress``).
 
 Words are ``int32`` tensors (bit-casts of the NumPy ``uint32`` words) on an
 explicit device: a CPU tensor takes each kernel's plain version, a CUDA
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from . import word_logical as _wl
+from .grad_compress import block_sqnorms, topk_block_mask  # noqa: F401
 
 _ALL_ONES = np.uint32(0xFFFFFFFF)
 

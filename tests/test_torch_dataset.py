@@ -364,6 +364,11 @@ def test_package_imports_neither_jax_nor_reference():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels.ops\n"
+        "import repro_torch.configs, repro_torch.models, repro_torch.train\n"
+        "import repro_torch.distributed, repro_torch.data\n"
+        "import repro_torch.launch.train, repro_torch.train.loop\n"
+        "import repro_torch.distributed.checkpoint\n"
+        "import repro_torch.distributed.grad_compression\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
