@@ -7,7 +7,7 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc`` (one process per source, all started together), holds each kernel
 against its plain PyTorch version on the card at its main path's shapes and
 times kernel, plain version and the PyTorch library call, then drives the
-port's two main paths through the entry points a user calls:
+port's three main paths through the entry points a user calls:
 
 1. the bitmap engine, ``word_logical``:
 
@@ -19,6 +19,13 @@ port's two main paths through the entry points a user calls:
    200, 400 and 800; 2^22 rows sorted, 2^21 rows unsorted), under the
    ``ewah``, ``kernel`` and ``auto`` backends.  The three backends must
    agree and every answer must match a NumPy oracle over the same rows.
+
+   The index profile, ``bitpack``, ``popcount_rows`` and
+   ``popcount_total`` through ``repro_torch.kernels.ops``, over the sorted
+   table's Dataset: the (2^22, 1,500) bools of its rows pack into words
+   that must equal the index's 1,500 bitmaps; each bitmap's count must
+   equal ``bitmap_count`` and the total 4 x 2^22; 2^31 set bits must wrap
+   to -2^31 as the reference's int32 sum does.
 
 2. LM training with EWAH gradient compression, ``block_sqnorms``:
 
@@ -418,6 +425,154 @@ def profile_statements(torch, ds, stmts, backend, prefix):
                            for ev in top]}))
 
 
+# -- index-profile phase: bitpack, popcount_rows, popcount_total -----------------
+
+def index_bits(torch, ds, device):
+    """(n_rows, n_bitmaps) bools of the index's rows, in index order: each
+    column's k-of-N codes scattered at its bitmaps' offset, the same
+    scatter as the builder's (``core/index.py``, ``_close_partition``)."""
+    table = ds.table
+    n, n_bitmaps = len(table), ds.index.n_bitmaps
+    bits = torch.zeros((n, n_bitmaps), dtype=torch.bool, device=device)
+    flat = bits.view(-1)
+    row_base = torch.arange(n, dtype=torch.int64,
+                            device=device)[:, None] * n_bitmaps
+    off = 0
+    for c, ci in enumerate(ds.index.columns):
+        codes = torch.from_numpy(
+            ci.encoder.codes(table[:, c]).astype(np.int64)).to(device)
+        flat[(row_base + (codes + off)).reshape(-1)] = True
+        off += ci.encoder.L
+    return bits
+
+
+def index_words(ds) -> np.ndarray:
+    """(n_bitmaps, n_words) uint32 words of every bitmap of the index, on
+    the host, column by column."""
+    cols = ds.index.columns
+    out = np.empty((ds.index.n_bitmaps, -(-ds.n_rows // 32)), np.uint32)
+    i = 0
+    for c, ci in enumerate(cols):
+        for b in range(ci.encoder.L):
+            out[i] = ds.index.bitmap(c, b).to_words()
+            i += 1
+    return out
+
+
+def exact_err(torch, got, want) -> int:
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
+        if got.numel() else 0
+
+
+def index_profile_run(torch, ops, pc, bp, ds, device):
+    """The three kernels' main path over ``ds``'s index, through ``ops``:
+    ``bitpack`` of its rows' bools (the bitmap build's inner loop), then
+    ``popcount_rows`` (each bitmap's count, the planner's selectivity) and
+    ``popcount_total`` of its bitmaps' words.  The launch counters are set
+    to 0 just before and read just after.  Then each result is held
+    against the index (its words, its ``bitmap_count``s, k bits a row in
+    each column) and against the plain version.  Returns
+    (bits, words, launches, max abs errors)."""
+    bits = index_bits(torch, ds, device)
+    host_words = index_words(ds)
+    counts = torch.tensor([ci.bitmap_count(b) for ci in ds.index.columns
+                           for b in range(ci.encoder.L)], dtype=torch.int32)
+    want_total = sum(ci.encoder.k for ci in ds.index.columns) * ds.n_rows
+    bp.launches = 0
+    for name in pc.launches:
+        pc.launches[name] = 0
+    packed = ops.bitpack(bits)
+    words = ops.to_device_words(host_words, device)
+    rows = ops.popcount_rows(words)
+    total = ops.popcount_total(words)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = {"bitpack": bp.launches, **pc.launches}
+    del host_words
+    errs = {"bitpack": exact_err(torch, packed, bp.bitpack_plain(bits)),
+            "popcount_rows": exact_err(torch, rows,
+                                       pc.popcount_rows_plain(words)),
+            "popcount_total": exact_err(torch, total,
+                                        pc.popcount_total_plain(words))}
+    if any(errs.values()):
+        raise AssertionError(f"index profile: kernel != plain: {errs}")
+    if not torch.equal(packed.T, words):
+        raise AssertionError("index profile: bitpack of the rows != the "
+                             "index's bitmaps")
+    if not torch.equal(rows.cpu(), counts):
+        raise AssertionError("index profile: popcount_rows != bitmap_count")
+    if int(total) != want_total:
+        raise AssertionError(f"index profile: popcount_total {int(total)} "
+                             f"!= {want_total}")
+    return bits, words, launches, errs
+
+
+def popcount_wrap_check(torch, ops, pc):
+    """2^26 all-ones words hold 2^31 set bits: the reference's int32 sum
+    wraps to -2^31, and so must kernel and plain version."""
+    ones = torch.full((8, 1 << 23), -1, dtype=torch.int32, device="cuda")
+    got = int(ops.popcount_total(ones))
+    plain = int(pc.popcount_total_plain(ones))
+    log(f"popcount_total wrap: 2^26 all-ones words -> kernel {got} "
+        f"plain {plain}")
+    if got != -2**31 or plain != -2**31:
+        raise AssertionError(f"popcount_total wrap: kernel {got}, plain "
+                             f"{plain}, expected {-2**31}")
+
+
+def index_profile_phase(torch, ops, pc, bp, timer, ds):
+    """The index-profile main path on the sorted table's Dataset, the wrap
+    check, then each kernel timed at the main path's shape beside its
+    bytes bound, its plain version and a ``torch.sum`` over the same
+    bytes.  Returns each kernel's row of the kernels line."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bits, words, launches, errs = index_profile_run(torch, ops, pc, bp, ds,
+                                                    "cuda")
+    log(f"index profile: bits {tuple(bits.shape)} words "
+        f"{tuple(words.shape)} launches={launches} errs={errs} "
+        f"s={time.perf_counter() - t0}; bitpack == the index's bitmaps, "
+        f"popcount_rows == bitmap_count, popcount_total == k x rows")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"index profile: {name} never launched")
+    popcount_wrap_check(torch, ops, pc)
+    has_bitwise_count = hasattr(torch, "bitwise_count")
+    library_note = ("no single PyTorch call computes it; torch."
+                    f"bitwise_count present: {has_bitwise_count}")
+    n, L = bits.shape
+    R, C = words.shape
+    cases = {
+        "bitpack": (lambda: ops.bitpack(bits),
+                    lambda: bp.bitpack_plain(bits), bits,
+                    n * L + -(-n // 32) * L * 4, [n, L]),
+        "popcount_rows": (lambda: ops.popcount_rows(words),
+                          lambda: pc.popcount_rows_plain(words), words,
+                          R * C * 4 + R * 4, [R, C]),
+        "popcount_total": (lambda: ops.popcount_total(words),
+                           lambda: pc.popcount_total_plain(words), words,
+                           R * C * 4 + 4, [R, C]),
+    }
+    out = {}
+    for name, (kernel, plain, x, n_bytes, shape) in cases.items():
+        row = {"name": name, "shape": shape, "launches": launches[name],
+               "max_abs_err": errs[name], "ms": timer.ms(kernel),
+               "plain_ms": timer.ms(plain),
+               "bound_ms": bound_ms(n_bytes), "bound_by": "bytes",
+               "library_ms": None, "library_note": library_note,
+               # a torch.sum over the same bytes read as float32 (torch's
+               # integer sums are far slower): what a plain read of them
+               # takes on this card, beside the bound
+               "read_ms": timer.ms(lambda: x.view(torch.float32).sum())}
+        log("index_case", json.dumps(row))
+        out[name] = row
+    log(f"index profile: peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    del bits, words
+    torch.cuda.empty_cache()
+    return out
+
+
 # -- block_sqnorms kernel phase -------------------------------------------------
 
 def block_sqnorms_case(torch, gc, timer, g, label):
@@ -644,7 +799,9 @@ def main() -> int:
     from repro_torch.core import Dataset, col, synth
     from repro_torch.core import cost_model
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import bitpack_kernel as bp
     from repro_torch.kernels import grad_compress as gc
+    from repro_torch.kernels import popcount as pc
     from repro_torch.kernels import word_logical as wl
 
     t_start = time.perf_counter()
@@ -656,7 +813,8 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    nvcc_out = _build.build("word_logical", "grad_compress")
+    nvcc_out = _build.build("word_logical", "grad_compress", "popcount",
+                            "bitpack")
     log(f"kernel build_s={time.perf_counter() - t0} (parallel nvcc)")
     for name, out in nvcc_out.items():
         log(f"--- nvcc {name}\n{out.strip()}\n---")
@@ -670,6 +828,7 @@ def main() -> int:
         must_launch=("kernel", "kernel_warm"))
     main_row = main_path_case(torch, wl, timer, ds, stmts)
     profile_statements(torch, ds, stmts, "kernel", "andnot.")
+    index_rows = index_profile_phase(torch, ops, pc, bp, timer, ds)
     del ds
     torch.cuda.empty_cache()
     ds, stmts, launches_unsorted = main_path(
@@ -717,8 +876,24 @@ def main() -> int:
         "bound_ms": sq_row["bound_ms"], "bound_by": "bytes",
         "library_ms": sq_row["library_ms"],
     }]
+    for name, replaces in (
+            ("popcount_total", "src/repro/kernels/popcount.py:37"),
+            ("popcount_rows", "src/repro/kernels/popcount.py:66"),
+            ("bitpack", "src/repro/kernels/bitpack_kernel.py:34")):
+        row = index_rows[name]
+        source = "bitpack.cu" if name == "bitpack" else "popcount.cu"
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": replaces, "launches": row["launches"],
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": row["library_ms"],
+        })
     log(f"launches sorted={launches_sorted} unsorted={launches_unsorted} "
-        f"block_sqnorms={sq_launches}")
+        f"block_sqnorms={sq_launches} index_profile="
+        f"{ {k: r['launches'] for k, r in index_rows.items()} }")
     log(f"total_s={time.perf_counter() - t_start}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

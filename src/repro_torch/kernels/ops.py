@@ -1,6 +1,8 @@
-"""Public wrappers around the word-logical kernel, with the padding glue,
-and the gradient-compression kernel's ``block_sqnorms`` and
-``topk_block_mask`` (defined in ``grad_compress``).
+"""Public wrappers around the word-logical kernel, with the padding glue;
+the gradient-compression kernel's ``block_sqnorms`` and
+``topk_block_mask`` (defined in ``grad_compress``); and ``popcount_total``,
+``popcount_rows`` (defined in ``popcount``) and ``bitpack`` (defined in
+``bitpack_kernel``), with the reference's signatures.
 
 Words are ``int32`` tensors (bit-casts of the NumPy ``uint32`` words) on an
 explicit device: a CPU tensor takes each kernel's plain version, a CUDA
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 
 from . import word_logical as _wl
+from .bitpack_kernel import bitpack  # noqa: F401
 from .grad_compress import block_sqnorms, topk_block_mask  # noqa: F401
+from .popcount import popcount_rows, popcount_total  # noqa: F401
 
 _ALL_ONES = np.uint32(0xFFFFFFFF)
 

@@ -10,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.bitpack import pack_matrix
+from repro_torch.kernels import bitpack_kernel as t_bp
 from repro_torch.kernels import grad_compress as t_kgc
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import popcount as t_pc
 from repro_torch.kernels import word_logical as t_wl
 
 
@@ -64,3 +67,117 @@ def test_word_logical_matches_plain_and_numpy(cuda_device, op):
     assert torch.equal(got, t_wl.word_logical_plain(ta, tb, fa, fb, op))
     want = {"and": a & b, "or": a | b, "xor": a ^ b, "andnot": a & ~b}[op]
     assert np.array_equal(t_ops.to_numpy_words(got), want)
+
+
+# the reference's shapes, then the smoke's index matrix (1,500 bitmaps of
+# 131,072 words)
+POPCOUNT_SHAPES = [(1, 5), (8, 1024), (5, 333), (17, 2049), (1500, 131072)]
+
+
+def _random_words(device, shape, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    a = torch.randint(-2**31, 2**31 - 1, shape, dtype=torch.int32,
+                      device=device, generator=gen)
+    a[0] = 0
+    a[-1, ::3] = -1
+    return a
+
+
+def _check_popcount(a):
+    before = dict(t_pc.launches)
+    total = t_ops.popcount_total(a)
+    rows = t_ops.popcount_rows(a)
+    torch.cuda.synchronize()
+    assert t_pc.launches == {"popcount_total": before["popcount_total"] + 1,
+                             "popcount_rows": before["popcount_rows"] + 1}
+    assert total.dtype == torch.int32 and total.dim() == 0
+    assert rows.dtype == torch.int32 and rows.shape == (a.shape[0],)
+    assert torch.equal(total, t_pc.popcount_total_plain(a))
+    assert torch.equal(rows, t_pc.popcount_rows_plain(a))
+    return total, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POPCOUNT_SHAPES)
+def test_popcount_matches_plain_and_numpy(cuda_device, shape):
+    a = _random_words(cuda_device, shape, shape[0] * shape[1])
+    total, rows = _check_popcount(a)
+    if a.numel() <= 1 << 20:
+        host = t_ops.to_numpy_words(a)
+        want = np.bitwise_count(host).sum(1)
+        assert np.array_equal(rows.cpu().numpy(), want)
+        assert int(total) == int(want.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,cols", [(1, 1024), (3, 1024), (1, 2049),
+                                         (4, 1026)])
+def test_popcount_of_unaligned_rows_matches_plain(cuda_device, offset, cols):
+    # a view that starts off a 16-byte boundary, or rows of a width that is
+    # not a multiple of 4 words: the kernels' 4-byte load paths
+    buf = _random_words(cuda_device, (10, cols), cols).view(-1)
+    a = buf[offset:offset + 9 * cols].view(9, cols)
+    assert a.data_ptr() % 16 or cols % 4
+    _check_popcount(a)
+
+
+@pytest.mark.cuda
+def test_popcount_wraps_like_the_reference_int32_sum(cuda_device):
+    # 2^31 set bits: -2^31 in int32, the reference's wrap
+    ones = torch.full((8, 1 << 23), -1, dtype=torch.int32,
+                      device=cuda_device)
+    total, rows = _check_popcount(ones)
+    assert int(total) == -2**31
+    assert rows.tolist() == [1 << 28] * 8
+    del ones
+    # one row of 2^26 all-ones words wraps too
+    ones = torch.full((2, 1 << 26), -1, dtype=torch.int32,
+                      device=cuda_device)
+    total, rows = _check_popcount(ones)
+    assert rows.tolist() == [-2**31, -2**31] and int(total) == 0
+
+
+@pytest.mark.cuda
+def test_popcount_of_empty_matrices_launches_nothing(cuda_device):
+    before = dict(t_pc.launches)
+    for shape in ((0, 5), (3, 0)):
+        t = torch.zeros(shape, dtype=torch.int32, device=cuda_device)
+        assert int(t_ops.popcount_total(t)) == 0
+        assert t_ops.popcount_rows(t).tolist() == [0] * shape[0]
+    assert t_pc.launches == before
+
+
+# the reference's (N, L) grid, ragged N, L = 1, a grid taller than 65,535
+# word rows, and 2^20 rows of the smoke's 1,500 bitmaps
+BITPACK_SHAPES = [(32, 4), (1024, 128), (2048, 200), (96, 7), (4096, 64),
+                  (33, 9), (1000, 130), (256, 1), (4_194_309, 3),
+                  (1 << 20, 1500)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L", BITPACK_SHAPES)
+@pytest.mark.parametrize("density", [0.0, 0.02, 0.5, 1.0])
+def test_bitpack_matches_plain_and_pack_matrix(cuda_device, N, L, density):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(N * L)
+    bits = torch.rand((N, L), generator=gen, device=cuda_device) < density
+    before = t_bp.launches
+    got = t_ops.bitpack(bits)
+    torch.cuda.synchronize()
+    assert t_bp.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (-(-N // 32), L)
+    assert torch.equal(got, t_bp.bitpack_plain(bits))
+    if N * L <= 1 << 20:
+        assert np.array_equal(t_ops.to_numpy_words(got).T,
+                              pack_matrix(bits.cpu().numpy()))
+
+
+@pytest.mark.cuda
+def test_bitpack_reads_other_dtypes_as_nonzero(cuda_device):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(5)
+    x = torch.randint(0, 3, (1000, 37), dtype=torch.uint8, device=cuda_device,
+                      generator=gen)
+    x[::7] = 255
+    assert torch.equal(t_ops.bitpack(x), t_bp.bitpack_plain(x != 0))
