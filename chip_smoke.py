@@ -9,7 +9,8 @@ against its plain PyTorch version on the card at its main path's shapes and
 times kernel, plain version and the PyTorch library call, then drives the
 port's three main paths through the entry points a user calls:
 
-1. the bitmap engine, ``word_logical``:
+1. the bitmap engine, ``logical_reduce`` (the fused n-ary AND / OR and
+   AND-NOT of the executor's dense path):
 
     Dataset.from_rows(rows, names, sort=..., measures=..., device="cuda")
         .query(backend=...).where(e) -> count / group_by / top_k /
@@ -18,14 +19,17 @@ port's three main paths through the entry points a user calls:
    on the paper's section 4.1 uniform table (4 columns of cardinality 100,
    200, 400 and 800; 2^22 rows sorted, 2^21 rows unsorted), under the
    ``ewah``, ``kernel`` and ``auto`` backends.  The three backends must
-   agree and every answer must match a NumPy oracle over the same rows.
+   agree and every answer must match a NumPy oracle over the same rows;
+   ``ewah`` must launch no kernel, ``kernel`` the fused one.  The fused
+   kernel is then checked and timed on the main path's own operands.
 
-   The index profile, ``bitpack``, ``popcount_rows`` and
-   ``popcount_total`` through ``repro_torch.kernels.ops``, over the sorted
-   table's Dataset: the (2^22, 1,500) bools of its rows pack into words
-   that must equal the index's 1,500 bitmaps; each bitmap's count must
-   equal ``bitmap_count`` and the total 4 x 2^22; 2^31 set bits must wrap
-   to -2^31 as the reference's int32 sum does.
+   The index profile, ``bitpack``, ``popcount_rows``, ``popcount_total``
+   and the pairwise ``word_logical`` through ``repro_torch.kernels.ops``,
+   over the sorted table's Dataset: the (2^22, 1,500) bools of its rows
+   pack into words that must equal the index's 1,500 bitmaps; each
+   bitmap's count must equal ``bitmap_count`` and the total 4 x 2^22;
+   2^31 set bits must wrap to -2^31 as the reference's int32 sum does;
+   the OR of 32 bitmaps with 32 others must equal ``a | b``.
 
 2. LM training with EWAH gradient compression, ``block_sqnorms``:
 
@@ -70,6 +74,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA data sheet
 TILE_BYTES = 8 * 1024 * 4     # one (8, 1024) tile of 32-bit words
 NAMES = ["c0", "c1", "c2", "c3"]
 REPS = 30
+SPIN_CYCLES = 2_000_000       # about 1 ms at the H100's 1.98 GHz boost clock
 QWEN2_PARAMS = 494_032_768    # qwen2-0.5b's parameter count: its flat gradient
 
 
@@ -82,11 +87,19 @@ def log(*parts):
 class Timer:
     """Median device time of a call, by CUDA events around each call, with
     the 50 MB L2 cache flushed before each one: the executor finds its
-    cached operands in device memory, not in L2."""
+    cached operands in device memory, not in L2.  The flush reads 256 MB,
+    so it leaves L2 holding clean lines (a flush that writes would leave
+    up to 50 MB of dirty lines for the timed call to write back).  A spin
+    of about 1 ms (``torch.cuda._sleep``) queued before the start event
+    keeps the card busy while the host enqueues the call, so the events
+    time the call's device work and not its host code.  ``floor_ms`` is
+    what the same method gives an empty kernel."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+        self.flush = torch.zeros(64 << 20, dtype=torch.float32,
+                                 device="cuda")
+        self.floor_ms = self.ms(lambda: torch.cuda._sleep(1))
 
     def ms(self, fn, reps: int = REPS, warm: int = 3) -> float:
         torch = self.torch
@@ -94,7 +107,8 @@ class Timer:
             fn()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.flush.sum()
+            torch.cuda._sleep(SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -178,48 +192,130 @@ def synthetic_words(torch, gen, R, C):
     return a, b
 
 
-def kernel_phase(torch, ops, wl, timer):
+def kernel_phase(torch, ops, wl, lr, timer):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     words_sorted = ops.bucket_cols(-(-ROWS_SORTED // 32))
     words_unsorted = ops.bucket_cols(-(-ROWS_UNSORTED // 32))
-    # the main path's shapes: the halves of a 64-row bucketed stack, and
-    # the one-row AND-NOT padded to a tile of 8 rows
+    # the pairwise kernel at the shapes of its launches on the main path
+    # before the fused reduction: the halves of a 64-row bucketed stack,
+    # and the one-row AND-NOT padded to a tile of 8 rows
     for R, C in ((32, words_sorted), (8, words_sorted), (8, words_unsorted)):
         a, b = synthetic_words(torch, gen, R, C)
         for op in wl.OPS:
             word_logical_case(torch, wl, timer, a, b, op, "synthetic")
-    npop = {"and": torch.bitwise_and, "or": torch.bitwise_or,
-            "xor": torch.bitwise_xor}
-    for L in (2, 3, 8, 64):
-        m = torch.randint(-2**31, 2**31 - 1, (L, words_sorted),
-                          dtype=torch.int32, device="cuda", generator=gen)
-        m[0, : words_sorted // 3] = 0
-        m[-1, words_sorted // 2:] = -1
-        m_host = m.cpu().numpy().view(np.uint32)
-        rf = torch.from_numpy(ops.np_row_flags(m_host)).cuda()
+    # the fused reduction over synthetic rows: the sorted table's width
+    # with clean blocks, and a dense 100-row stack at the unsorted width
+    for L, C, dense in ((2, words_sorted, False), (3, words_sorted, False),
+                        (8, words_sorted, False), (64, words_sorted, False),
+                        (100, words_unsorted, True)):
+        m = torch.randint(-2**31, 2**31 - 1, (L, C), dtype=torch.int32,
+                          device="cuda", generator=gen)
+        if not dense:
+            m[0, : C // 3] = 0
+            m[-1, C // 2:] = -1
+        rf = torch.from_numpy(ops.np_row_flags(
+            m.cpu().numpy().view(np.uint32))).cuda()
+        rows, flags = list(m.unbind(0)), list(rf.unbind(0))
         for op in ("and", "or", "xor"):
-            got = ops.logical_reduce(m, op, row_flags=rf)
-            torch.cuda.synchronize()
-            plain = functools.reduce(npop[op], m.unbind(0))
-            if not torch.equal(got, plain):
-                raise AssertionError(f"logical_reduce L={L} {op} != plain")
-            # least bytes: the dirty row blocks of the input, except in a
-            # column block that a clean-0 (AND) or clean-1 (OR) row decides,
-            # read once; the result row written once
-            dirty = rf == wl.DIRTY
-            absorb = {"and": wl.CLEAN0, "or": wl.CLEAN1}.get(op)
-            if absorb is not None:
-                dirty &= ~(rf == absorb).any(dim=0, keepdim=True)
-            n_bytes = int(dirty.sum()) * 1024 * 4 + words_sorted * 4
-            row = {"L": L, "op": op, "cols": words_sorted,
-                   "ms": timer.ms(lambda: ops.logical_reduce(
-                       m, op, row_flags=rf)),
-                   "plain_ms": timer.ms(lambda: functools.reduce(
-                       npop[op], m.unbind(0)), reps=5),
-                   "bound_ms": bound_ms(n_bytes), "bound_by": "bytes",
-                   "library_ms": None}
-            log("reduce_case", json.dumps(row))
+            reduce_case(torch, ops, lr, timer, rows, flags, [], [], op,
+                        f"synthetic L={L}",
+                        whole=lambda: ops.logical_reduce(m, op, row_flags=rf))
+
+
+def reduce_bytes(torch, lr, flags, n_pos: int, op: str, cols: int) -> int:
+    """Least bytes of one fused reduction: the DIRTY row blocks that the
+    result needs (none in a flag column that an absorbing flag decides:
+    CLEAN0 of a pos row under and, CLEAN1 under or, CLEAN1 of a neg row),
+    read once; every flag read once; the result row and its flag row
+    written once.  ``flags`` holds each row's flag row, or None for a row
+    read whole.  Sizes the kernel's bytes bound by the rule of
+    ``csrc/logical_reduce.cu``."""
+    nfc = lr.n_flag_cols(cols)
+    f = torch.stack([torch.full((nfc,), lr.DIRTY, dtype=torch.int32)
+                     if x is None else x[:nfc].cpu() for x in flags])
+    pos, neg = f[:n_pos], f[n_pos:]
+    pos_absorbs = {"and": (pos == lr.CLEAN0).any(0),
+                   "or": (pos == lr.CLEAN1).any(0)}.get(
+                       op, torch.zeros(nfc, dtype=torch.bool))
+    zero = (neg == lr.CLEAN1).any(0)
+    if op == "and":
+        zero |= pos_absorbs
+    width = torch.full((nfc,), lr.FLAG_COLS, dtype=torch.int64)
+    width[-1] = cols - (nfc - 1) * lr.FLAG_COLS
+    read_pos = ((pos == lr.DIRTY) & ~(pos_absorbs | zero)).sum(0)
+    read_neg = ((neg == lr.DIRTY) & ~zero).sum(0)
+    words_read = int(((read_pos + read_neg) * width).sum())
+    n_flags = sum(nfc for x in flags if x is not None)
+    return 4 * (words_read + n_flags + cols + nfc)
+
+
+def host_ms(torch, timer, fn, reps: int = REPS) -> float:
+    """Median host-clock time of a call that ends in a synchronize, the L2
+    flushed before each: the whole call, host code and launches included."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        timer.flush.sum()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def reduce_case(torch, ops, lr, timer, pos, pos_flags, neg, neg_flags, op,
+                label, whole=None):
+    """Check one fused reduction against its plain version on the card
+    (words and flag row) and against a fold of the raw rows, then time the
+    kernel alone (``ms``, CUDA events), the whole ``ops`` call
+    (``call_ms``, host clock: ``whole``, by default the executor's list
+    form) and the plain version, beside the bytes bound.  ``library_ms``
+    is null: no single PyTorch call folds rows."""
+    rows, flags = list(pos) + list(neg), list(pos_flags) + list(neg_flags)
+    n_launch = -(-len(rows) // lr.MAX_ROWS)
+    before = lr.launches
+    got, got_flags = lr.fold(pos, pos_flags, neg, neg_flags, op)
+    torch.cuda.synchronize()
+    if lr.launches - before != n_launch:
+        raise AssertionError(f"logical_reduce {label}: "
+                             f"{lr.launches - before} launches, expected "
+                             f"{n_launch}")
+    want, want_flags = lr.fold_plain(rows, flags, len(pos), op)
+    err = exact_err(torch, got, want)
+    fold_op = {"and": torch.bitwise_and, "or": torch.bitwise_or,
+               "xor": torch.bitwise_xor}[op]
+    raw = functools.reduce(fold_op, pos)
+    if neg:
+        raw = raw & ~functools.reduce(torch.bitwise_or, neg)
+    if not (torch.equal(got, want) and torch.equal(got, raw)
+            and torch.equal(got_flags, want_flags)):
+        raise AssertionError(f"logical_reduce {op} {label}: kernel != plain "
+                             f"(max abs err {err})")
+    if whole is None:
+        whole = (lambda: ops.diff_reduce(pos, pos_flags, neg, neg_flags)) \
+            if neg else (lambda: ops.logical_reduce(pos, op,
+                                                    row_flags=pos_flags))
+    cols = got.numel()
+    nfc = lr.n_flag_cols(cols)
+    row = {
+        "label": label, "op": op, "rows": [len(pos), len(neg)],
+        "cols": cols, "launches": n_launch, "max_abs_err": err,
+        "ms": timer.ms(lambda: lr.fold(pos, pos_flags, neg, neg_flags, op)),
+        "call_ms": host_ms(torch, timer, whole),
+        "plain_ms": timer.ms(lambda: lr.fold_plain(rows, flags, len(pos),
+                                                   op), reps=5),
+        "bound_ms": bound_ms(reduce_bytes(torch, lr, flags, len(pos), op,
+                                          cols)),
+        "bound_by": "bytes", "library_ms": None,
+        "dirty_blocks": [sum(nfc if f is None else
+                             int((f[:nfc] == lr.DIRTY).sum())
+                             for f in flags), len(flags) * nfc],
+    }
+    log("reduce_case", json.dumps(row))
+    return row
 
 
 # -- main path ----------------------------------------------------------------
@@ -311,10 +407,12 @@ def same(x, y) -> bool:
     return type(x) is type(y) and x == y
 
 
-def run_backend(ds, stmts, backend, torch, wl):
+def run_backend(ds, stmts, backend, torch, wl, lr):
     """Drive every statement once under ``backend``; returns results,
-    per-statement host seconds and the kernel launches of this run."""
+    per-statement host seconds and the launches of this run, of the fused
+    ``logical_reduce`` and of the pairwise ``word_logical``."""
     wl.launches = 0
+    lr.launches = 0
     results, secs = {}, {}
     t0 = time.perf_counter()
     for name, e, term in stmts:
@@ -323,11 +421,11 @@ def run_backend(ds, stmts, backend, torch, wl):
         torch.cuda.synchronize()
         secs[name] = time.perf_counter() - s
     total = time.perf_counter() - t0
-    launches = wl.launches
+    launches = {"logical_reduce": lr.launches, "word_logical": wl.launches}
     return results, secs, total, launches
 
 
-def main_path(label, n_rows, sort, torch, wl, synth, Dataset, col,
+def main_path(label, n_rows, sort, torch, wl, lr, synth, Dataset, col,
               must_launch):
     table, measures = make_table(synth, n_rows, SEED)
     t0 = time.perf_counter()
@@ -343,7 +441,7 @@ def main_path(label, n_rows, sort, torch, wl, synth, Dataset, col,
     for backend in ("ewah", "kernel", "auto", "kernel"):
         # the second "kernel" pass finds every operand cached on the card
         key = backend if backend not in runs else backend + "_warm"
-        runs[key] = run_backend(ds, stmts, backend, torch, wl)
+        runs[key] = run_backend(ds, stmts, backend, torch, wl, lr)
         res, secs, total, launches = runs[key]
         log(f"{label} backend={key}: launches={launches} total_s={total} "
             + json.dumps(secs))
@@ -354,12 +452,13 @@ def main_path(label, n_rows, sort, torch, wl, synth, Dataset, col,
             raise AssertionError(f"{label}: backend {key} differs from ewah "
                                  f"on {bad}")
     oracle_check(base, masks, rows, sales, groups)
-    if runs["ewah"][3] != 0:
-        raise AssertionError(f"{label}: ewah backend launched the kernel")
+    if any(runs["ewah"][3].values()):
+        raise AssertionError(f"{label}: ewah backend launched a kernel: "
+                             f"{runs['ewah'][3]}")
     for key in must_launch:
-        if runs[key][3] <= 0:
+        if runs[key][3]["logical_reduce"] <= 0:
             raise AssertionError(f"{label}: backend {key} never launched "
-                                 f"word_logical")
+                                 f"logical_reduce")
     # the host re-compression every kernel-path node ends in
     from repro_torch.core.ewah import EWAH
     e = next(e for name, e, _ in stmts if name == "andnot.count")
@@ -376,28 +475,38 @@ def main_path(label, n_rows, sort, torch, wl, synth, Dataset, col,
     return ds, stmts, {k: v[3] for k, v in runs.items()}
 
 
-def main_path_case(torch, wl, timer, ds, stmts):
-    """word_logical at the main path's widest launch, on its own words and
-    flags: recorded while the sorted table's 40-value OR runs under the
-    kernel backend (the first round of its bucketed 64-row stack)."""
-    widest = {}
-    real = wl.word_logical
+def record_reductions(lr, ds, stmts, name="andnot.count"):
+    """The fused reductions of one statement under the kernel backend, as
+    the executor hands them to ``logical_reduce.fold``: (pos, pos flags,
+    neg, neg flags, op) each, holding the operand tensors."""
+    seen = []
+    real = lr.fold
 
-    def record(a, b, fa, fb, op="and"):
-        if a.numel() > widest.get("n", 0):
-            widest.update(n=a.numel(), args=(a.clone(), b.clone(), fa.clone(),
-                                             fb.clone(), op))
-        return real(a, b, fa, fb, op)
+    def record(pos, pos_flags, neg=(), neg_flags=(), op="and"):
+        seen.append((list(pos), list(pos_flags), list(neg), list(neg_flags),
+                     op))
+        return real(pos, pos_flags, neg, neg_flags, op)
 
-    e = next(e for name, e, _ in stmts if name == "in.count")
-    wl.word_logical = record
+    e = next(e for n, e, _ in stmts if n == name)
+    lr.fold = record
     try:
         ds.query(backend="kernel").where(e).count()
     finally:
-        wl.word_logical = real
-    a, b, fa, fb, op = widest["args"]
-    return word_logical_case(torch, wl, timer, a, b, op, "main_path",
-                             fa=fa, fb=fb)
+        lr.fold = real
+    return seen
+
+
+def main_path_case(torch, ops, lr, timer, ds, stmts, label):
+    """The fused kernel on the main path's own operands: each reduction of
+    the AND-NOT statement under the kernel backend (the 40-value OR, the
+    100-value OR and the AND-NOT node), checked and timed by
+    ``reduce_case``.  Returns their rows."""
+    rows = []
+    for pos, pf, neg, nf, op in record_reductions(lr, ds, stmts):
+        kind = "and-not" if neg else f"{len(pos)}-value {op}"
+        rows.append(reduce_case(torch, ops, lr, timer, pos, pf, neg, nf, op,
+                                f"main_path {label} {kind}"))
+    return rows
 
 
 def profile_statements(torch, ds, stmts, backend, prefix):
@@ -520,11 +629,34 @@ def popcount_wrap_check(torch, ops, pc):
                              f"{plain}, expected {-2**31}")
 
 
-def index_profile_phase(torch, ops, pc, bp, timer, ds):
+def pairwise_case(torch, ops, wl, timer, words):
+    """The pairwise ``ops.word_logical``, the reference's public API with no
+    caller in the system since the executor folds n-ary nodes in one
+    launch: the OR of the index's first 32 bitmaps with its next 32, with
+    their own tile flags, as the executor's widest pairwise launch was.
+    Its launch counter is set to 0 just before and read just after; then
+    the kernel is checked and timed by ``word_logical_case``."""
+    a, b = words[:32], words[32:64]
+    wl.launches = 0
+    got = ops.word_logical(a, b, "or")
+    torch.cuda.synchronize()
+    launches = wl.launches
+    if launches != 1:
+        raise AssertionError(f"index profile: word_logical made {launches} "
+                             f"launches, expected 1")
+    if not torch.equal(got, a | b):
+        raise AssertionError("index profile: word_logical or != a | b")
+    row = word_logical_case(torch, wl, timer, a, b, "or", "index_profile")
+    row["launches"] = launches
+    return row
+
+
+def index_profile_phase(torch, ops, pc, bp, wl, timer, ds):
     """The index-profile main path on the sorted table's Dataset, the wrap
-    check, then each kernel timed at the main path's shape beside its
-    bytes bound, its plain version and a ``torch.sum`` over the same
-    bytes.  Returns each kernel's row of the kernels line."""
+    check, the pairwise ``word_logical``, then each kernel timed at the
+    main path's shape beside its bytes bound, its plain version and a
+    ``torch.sum`` over the same bytes.  Returns each kernel's row of the
+    kernels line."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     bits, words, launches, errs = index_profile_run(torch, ops, pc, bp, ds,
@@ -537,6 +669,7 @@ def index_profile_phase(torch, ops, pc, bp, timer, ds):
         if n <= 0:
             raise AssertionError(f"index profile: {name} never launched")
     popcount_wrap_check(torch, ops, pc)
+    out = {"word_logical": pairwise_case(torch, ops, wl, timer, words)}
     has_bitwise_count = hasattr(torch, "bitwise_count")
     library_note = ("no single PyTorch call computes it; torch."
                     f"bitwise_count present: {has_bitwise_count}")
@@ -553,7 +686,6 @@ def index_profile_phase(torch, ops, pc, bp, timer, ds):
                            lambda: pc.popcount_total_plain(words), words,
                            R * C * 4 + 4, [R, C]),
     }
-    out = {}
     for name, (kernel, plain, x, n_bytes, shape) in cases.items():
         row = {"name": name, "shape": shape, "launches": launches[name],
                "max_abs_err": errs[name], "ms": timer.ms(kernel),
@@ -636,19 +768,22 @@ TRAIN_ARGS = ["--arch", "qwen2-0.5b", "--full", "--compress", "0.25",
               "--seq-len", "128", "--ckpt-every", "1000", "--device", "cuda"]
 
 
-def training_path(torch, gc, wl, ckpt_dir):
+def training_path(torch, gc, wl, lr, ckpt_dir):
     """The slice's main run through ``repro_torch.launch.train``'s entry;
     returns (model, params, report, block_sqnorms launches)."""
     from repro_torch.launch import train as launch_train
     torch.cuda.reset_peak_memory_stats()
     gc.launches = 0
     wl.launches = 0
+    lr.launches = 0
     t0 = time.perf_counter()
     model, params, report = launch_train.main(
         TRAIN_ARGS + ["--ckpt-dir", ckpt_dir])
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches, wl_launches = gc.launches, wl.launches
+    launches = gc.launches
+    bitmap_launches = {"logical_reduce": lr.launches,
+                       "word_logical": wl.launches}
     n_params = sum(p.numel() for p in params.values())
     log("train: " + json.dumps({
         "arch": model.cfg.name, "params": n_params,
@@ -657,7 +792,7 @@ def training_path(torch, gc, wl, ckpt_dir):
         "total_s": total_s,
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "block_sqnorms_launches": launches,
-        "word_logical_launches": wl_launches}))
+        "bitmap_kernel_launches": bitmap_launches}))
     losses = np.asarray(report.losses)
     if not np.isfinite(losses).all():
         raise AssertionError(f"train: a loss is not finite: {report.losses}")
@@ -801,6 +936,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import bitpack_kernel as bp
     from repro_torch.kernels import grad_compress as gc
+    from repro_torch.kernels import logical_reduce as lr
     from repro_torch.kernels import popcount as pc
     from repro_torch.kernels import word_logical as wl
 
@@ -813,33 +949,36 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    nvcc_out = _build.build("word_logical", "grad_compress", "popcount",
-                            "bitpack")
+    nvcc_out = _build.build("logical_reduce", "word_logical",
+                            "grad_compress", "popcount", "bitpack")
     log(f"kernel build_s={time.perf_counter() - t0} (parallel nvcc)")
     for name, out in nvcc_out.items():
         log(f"--- nvcc {name}\n{out.strip()}\n---")
 
     timer = Timer(torch)
-    kernel_phase(torch, ops, wl, timer)
+    log(f"timer floor: an empty kernel measures {timer.floor_ms} ms")
+    kernel_phase(torch, ops, wl, lr, timer)
     sq_row = block_sqnorms_phase(torch, gc, timer, QWEN2_PARAMS)
 
     ds, stmts, launches_sorted = main_path(
-        "sorted", ROWS_SORTED, "lex", torch, wl, synth, Dataset, col,
+        "sorted", ROWS_SORTED, "lex", torch, wl, lr, synth, Dataset, col,
         must_launch=("kernel", "kernel_warm"))
-    main_row = main_path_case(torch, wl, timer, ds, stmts)
+    reduce_rows = main_path_case(torch, ops, lr, timer, ds, stmts, "sorted")
     profile_statements(torch, ds, stmts, "kernel", "andnot.")
-    index_rows = index_profile_phase(torch, ops, pc, bp, timer, ds)
+    index_rows = index_profile_phase(torch, ops, pc, bp, wl, timer, ds)
     del ds
     torch.cuda.empty_cache()
     ds, stmts, launches_unsorted = main_path(
-        "unsorted", ROWS_UNSORTED, "none", torch, wl, synth, Dataset, col,
-        must_launch=("kernel", "auto", "kernel_warm"))
+        "unsorted", ROWS_UNSORTED, "none", torch, wl, lr, synth, Dataset,
+        col, must_launch=("kernel", "auto", "kernel_warm"))
+    reduce_rows += main_path_case(torch, ops, lr, timer, ds, stmts,
+                                  "unsorted")
     profile_statements(torch, ds, stmts, "auto", "andnot.")
     del ds
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
         model, params, report, sq_launches = training_path(
-            torch, gc, wl, str(Path(ckpt_root) / "main"))
+            torch, gc, wl, lr, str(Path(ckpt_root) / "main"))
         n_params = sum(p.numel() for p in params.values())
         if n_params != QWEN2_PARAMS:
             raise AssertionError(f"qwen2-0.5b has {n_params} parameters, "
@@ -855,17 +994,28 @@ def main() -> int:
                                     "source": cm.source,
                                     "samples": cm.samples}))
 
-    launches = sum(launches_sorted.values()) + \
-        sum(launches_unsorted.values())
+    main_launches = [v for runs in (launches_sorted, launches_unsorted)
+                     for v in runs.values()]
+    reduce_row = max(reduce_rows, key=lambda r: r["bound_ms"])
+    pair_row = index_rows["word_logical"]
     kernels = [{
+        "name": "logical_reduce", "route": "cuda",
+        "source": "src/repro_torch/csrc/logical_reduce.cu",
+        "replaces": "src/repro/kernels/word_logical.py:74",
+        "launches": sum(v["logical_reduce"] for v in main_launches),
+        "max_abs_err": reduce_row["max_abs_err"],
+        "ms": reduce_row["ms"], "plain_ms": reduce_row["plain_ms"],
+        "bound_ms": reduce_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+    }, {
         "name": "word_logical", "route": "cuda",
         "source": "src/repro_torch/csrc/word_logical.cu",
         "replaces": "src/repro/kernels/word_logical.py:74",
-        "launches": launches,
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
-        "library_ms": main_row["library_ms"],
+        "launches": pair_row["launches"],
+        "max_abs_err": pair_row["max_abs_err"],
+        "ms": pair_row["ms"], "plain_ms": pair_row["plain_ms"],
+        "bound_ms": pair_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": pair_row["library_ms"],
     }, {
         "name": "block_sqnorms", "route": "cuda",
         "source": "src/repro_torch/csrc/grad_compress.cu",
@@ -893,7 +1043,8 @@ def main() -> int:
         })
     log(f"launches sorted={launches_sorted} unsorted={launches_unsorted} "
         f"block_sqnorms={sq_launches} index_profile="
-        f"{ {k: r['launches'] for k, r in index_rows.items()} }")
+        f"{ {k: r['launches'] for k, r in index_rows.items()} }; "
+        f"logical_reduce row: {reduce_row['label']}")
     log(f"total_s={time.perf_counter() - t_start}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -182,7 +182,7 @@ def calibrate(n_words: int = 1 << 14, n_operands: int = 8,
     """Measure the EWAH-vs-kernel crossover on *this* machine.
 
     For each density, times the vectorized host EWAH ``and_many`` against
-    the bucketed ``logical_reduce`` on ``device`` (``"cuda"`` by default;
+    the fused ``logical_reduce`` on ``device`` (``"cuda"`` by default;
     raises when CUDA is absent — ``"cpu"`` times the plain versions, and
     only when asked for).  Operands are on the device before timing, as in
     the executor's operand cache; the timed kernel path includes bringing

@@ -2,25 +2,25 @@
 
 Per-node backend choice (Roaring's lesson, arXiv:1402.6407 — pick the
 physical representation per operation, by density, not globally): an n-ary
-AND/OR whose operands are mostly *dense* (compressed size close to the
-uncompressed word count, so EWAH's run-skipping buys nothing) is offloaded
-to the ``word_logical`` kernel as a dense tree reduction on the executor's
-device (``device``: ``"cuda"`` by default, ``"cpu"`` for the plain
-versions — asked for, never fallen back to); sparse
-operands stay on the compressed EWAH path — the vectorized run-list ops in
-``repro_torch.core.ewah`` — where cost is O(non-zero words) (Lemma 2).  The
-decision reads the operands' actual compressed sizes, which the index
-already tracks, against the **measured** crossover density from
-``repro_torch.core.cost_model`` (calibrated per machine; static 0.5 fallback
-when no calibration has run).
+AND/OR or AND-NOT whose operands are mostly *dense* (compressed size close
+to the uncompressed word count, so EWAH's run-skipping buys nothing) is
+offloaded to the fused ``logical_reduce`` kernel, one launch that reads
+every operand row where it lies, on the executor's device (``device``:
+``"cuda"`` by default, ``"cpu"`` for the plain versions — asked for, never
+fallen back to); sparse operands stay on the compressed EWAH path — the
+vectorized run-list ops in ``repro_torch.core.ewah`` — where cost is
+O(non-zero words) (Lemma 2).  The decision reads the operands' actual
+compressed sizes, which the index already tracks, against the **measured**
+crossover density from ``repro_torch.core.cost_model`` (calibrated per
+machine; static 0.5 fallback when no calibration has run).
 
 Kernel-path operands are padded to power-of-two word-count buckets and
-cached *with* their per-row clean-tile flags, as tensors on the device,
+cached *with* their per-row clean-block flags, as tensors on the device,
 in the index's ``dense_cache`` (``("dense", device, col, bid, bucket)``
 entries): each bitmap is decompressed, flagged and uploaded once per
-device, not once per query or statement (see
-``repro_torch.kernels.ops``).  The reduction's one result row comes back
-to the host for ``EWAH.from_words``.
+device, not once per query or statement, and handed to the kernel as
+lists of rows (see ``repro_torch.kernels.ops``).  The reduction's one
+result row comes back to the host for ``EWAH.from_words``.
 
 ``QueryBatch`` evaluates many expressions in one pass over a shared operand
 cache: physical bitmaps (and their bucketed dense decompressions + flags,
@@ -396,19 +396,15 @@ class Executor:
         return out
 
     def _run_diff(self, node: PDiff) -> EWAH:
-        """AND(pos) \\ OR(neg) via EWAH's native andnot — negated operands
-        never materialize their complements."""
+        """AND(pos) \\ OR(neg): one fused kernel launch on the dense path,
+        EWAH's native andnot otherwise — negated operands never
+        materialize their complements."""
         pos = [(ch, self._run(ch)) for ch in node.pos]
         neg = [(ch, self._run(ch)) for ch in node.neg]
         if self._use_kernel([bm for _, bm in pos + neg]):
             pw, pf = zip(*[self._dense_operand(n, bm) for n, bm in pos])
             nw, nf = zip(*[self._dense_operand(n, bm) for n, bm in neg])
-            a = kops.logical_reduce(torch.stack(pw), op="and",
-                                    row_flags=torch.stack(pf))
-            b = kops.logical_reduce(torch.stack(nw), op="or",
-                                    row_flags=torch.stack(nf))
-            out = kops.to_numpy_words(
-                kops.word_logical(a[None, :], b[None, :], "andnot")[0])
+            out = kops.to_numpy_words(kops.diff_reduce(pw, pf, nw, nf))
             n_words = pos[0][1].n_words_uncompressed
             return EWAH.from_words(out[:n_words], pos[0][1].n_bits)
         acc = and_many([bm for _, bm in pos])
@@ -431,8 +427,8 @@ class Executor:
 
     def _reduce_kernel(self, children, op: str) -> EWAH:
         ws, fs = zip(*[self._dense_operand(node, bm) for node, bm in children])
-        out = kops.to_numpy_words(kops.logical_reduce(
-            torch.stack(ws), op=op, row_flags=torch.stack(fs)))
+        out = kops.to_numpy_words(kops.logical_reduce(ws, op=op,
+                                                      row_flags=fs))
         n_bits = children[0][1].n_bits
         n_words = children[0][1].n_words_uncompressed
         return EWAH.from_words(out[:n_words], n_bits)

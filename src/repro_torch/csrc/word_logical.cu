@@ -18,8 +18,8 @@
 // clean-0 tile, OR with a clean-1 tile, ANDNOT with a clean-0 a or a
 // clean-1 b).  Loads and stores are 16 bytes a thread, neighbouring threads
 // on neighbouring addresses: thread t handles words 4t..4t+3 of each of the
-// tile's 8 rows.  Making it fast (one launch for the whole n-ary reduction,
-// persistent blocks, TMA) is later work.
+// tile's 8 rows.  The n-ary reduction of the executor is one launch of
+// csrc/logical_reduce.cu instead of a tree of these.
 
 #include <cstdint>
 #include <cuda_runtime.h>

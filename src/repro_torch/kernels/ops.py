@@ -1,6 +1,8 @@
-"""Public wrappers around the word-logical kernel, with the padding glue;
-the gradient-compression kernel's ``block_sqnorms`` and
-``topk_block_mask`` (defined in ``grad_compress``); and ``popcount_total``,
+"""Public wrappers around the word-logical kernels: the pairwise
+``word_logical`` with its padding glue, and the n-ary ``logical_reduce``
+and ``diff_reduce`` (folded by ``logical_reduce.fold``); the
+gradient-compression kernel's ``block_sqnorms`` and ``topk_block_mask``
+(defined in ``grad_compress``); and ``popcount_total``,
 ``popcount_rows`` (defined in ``popcount``) and ``bitpack`` (defined in
 ``bitpack_kernel``), with the reference's signatures.
 
@@ -10,13 +12,12 @@ tensor launches the kernel.  ``resolve_device`` is where the package's
 entry points turn a device name into a ``torch.device``; it raises when
 CUDA is asked for and absent — there is no fallback to the CPU.
 
-Shape bucketing: the wrappers pad the word dimension up to power-of-two
-multiples of the 1024-word tile (``bucket_cols``) and the operand
-dimension up to a power of two filled with the op's identity word, so the
-shapes the kernel sees stay few across shards, queries and index generations.
-Callers that already hold bucketed operands can pass precomputed per-row
-clean flags (``np_row_flags``, on the device) so the sideband is not
-recomputed per query — the executor caches them next to the words.
+Shape bucketing: the executor pads each bitmap's words up to a
+power-of-two multiple of the 1024-word block (``bucket_cols``) and caches
+them with their per-row clean flags (``np_row_flags``, on the device), so
+the sideband is not recomputed per query.  The pairwise ``word_logical``
+pads its operands to that bucket and to (8, 1024) tiles; the n-ary
+reductions take rows of any length where they lie.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import logical_reduce as _lr
 from . import word_logical as _wl
 from .bitpack_kernel import bitpack  # noqa: F401
 from .grad_compress import block_sqnorms, topk_block_mask  # noqa: F401
@@ -214,61 +216,40 @@ def word_logical(a: torch.Tensor, b: torch.Tensor, op: str = "and",
     return out[: orig[0], : orig[1]]
 
 
-def logical_reduce(mat: torch.Tensor, op: str = "and",
-                   row_flags: Optional[torch.Tensor] = None) -> torch.Tensor:
+def logical_reduce(mat, op: str = "and", row_flags=None) -> torch.Tensor:
     """Reduce the rows of an (L, n_words) int32 word tensor to one word row.
 
-    Tree reduction: each round halves the operand count by running the
-    clean-tile-skipping ``word_logical`` kernel on the two matrix halves, so
-    an L-way AND/OR costs ceil(log2 L) kernel launches over ever-smaller
-    stacks — the dense executor path for n-ary query nodes.
-
-    The words pad to a power-of-two column bucket and the rows pad to a
-    power of two filled with the op's identity word (all-ones, ``-1``, for
-    AND; zero for OR/XOR), so every round halves exactly.  ``row_flags`` is
-    the optional (L, cols/1024) precomputed
-    clean sideband of the input rows (an int32 tensor on the same device);
-    it serves the first (widest) round, later rounds compute flags on the
-    device for their intermediate results.
+    One launch of the fused ``logical_reduce`` kernel per ``MAX_ROWS`` rows
+    (``kernels/logical_reduce.py``) reads every row where it lies, skips
+    the blocks that the flags make clean, and writes the one result row:
+    no row stack, no padding copy, no intermediate rows.  ``mat`` may also
+    be a sequence of 1-D word rows of one length, as the executor's cache
+    holds them.  ``row_flags`` is the optional (L, cols/1024) precomputed
+    clean sideband of the (bucketed) input rows (an int32 tensor on the same
+    device, or a sequence of 1-D flag rows); without it every block is
+    read, which is what computing the flags would cost.
     """
-    if op not in ("and", "or", "xor"):  # associative ops only
+    if op not in _lr.OPS:  # associative ops only
         raise ValueError(f"logical_reduce op must be and/or/xor, got {op!r}")
-    _check_words("mat", mat)
-    if mat.shape[0] < 1:
-        raise ValueError(f"logical_reduce needs >= 1 row, got {mat.shape}")
-    L, C = mat.shape
-    Cp = bucket_cols(C, _wl.BLOCK_COLS)
-    Lp = next_pow2(L)
-    identity = -1 if op == "and" else 0
-    if (Lp, Cp) != (L, C):
-        mat = _pad_identity(mat, Lp, Cp, identity)
-    if row_flags is not None and Lp != L:
-        pad_flag = _wl.CLEAN1 if op == "and" else _wl.CLEAN0
-        row_flags = torch.cat([row_flags, torch.full(
-            (Lp - L, row_flags.shape[1]), pad_flag, dtype=row_flags.dtype,
-            device=row_flags.device)])
-    first = True
-    while mat.shape[0] > 1:
-        half = mat.shape[0] // 2
-        rfa = rfb = None
-        if first and row_flags is not None:
-            # word_logical row-pads flags itself (CLEAN0, matching _pad2's
-            # zero rows), so any half size works
-            rfa, rfb = row_flags[:half], row_flags[half:2 * half]
-        red = word_logical(mat[:half], mat[half:2 * half], op,
-                           row_flags_a=rfa, row_flags_b=rfb)
-        if mat.shape[0] % 2:  # odd row carries to the next round
-            red = torch.cat([red, mat[2 * half:]])
-        mat = red
-        first = False
-    return mat[0][:C]
+    if isinstance(mat, torch.Tensor):
+        _check_words("mat", mat)
+        rows = list(mat.contiguous().unbind(0))
+    else:
+        rows = list(mat)
+    if not rows:
+        raise ValueError("logical_reduce needs >= 1 row")
+    if row_flags is None:
+        flags = [None] * len(rows)
+    elif isinstance(row_flags, torch.Tensor):
+        flags = list(row_flags.contiguous().unbind(0))
+    else:
+        flags = list(row_flags)
+    return _lr.fold(rows, flags, op=op)[0]
 
 
-def _pad_identity(mat: torch.Tensor, Lp: int, Cp: int,
-                  identity: int) -> torch.Tensor:
-    """Zero-pad the columns to ``Cp``, then append identity rows to ``Lp``."""
-    L, C = mat.shape
-    out = torch.full((Lp, Cp), identity, dtype=mat.dtype, device=mat.device)
-    out[:L] = 0
-    out[:L, :C] = mat
-    return out
+def diff_reduce(pos, pos_flags, neg, neg_flags) -> torch.Tensor:
+    """AND(pos) & ~OR(neg) over sequences of 1-D int32 word rows with their
+    flag rows (``None`` for a row whose blocks are all to be read): the
+    executor's AND-NOT node, in one launch of the fused kernel per
+    ``MAX_ROWS`` rows."""
+    return _lr.fold(pos, pos_flags, neg, neg_flags, op="and")[0]

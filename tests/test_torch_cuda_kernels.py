@@ -13,6 +13,7 @@ import torch
 from repro_torch.core.bitpack import pack_matrix
 from repro_torch.kernels import bitpack_kernel as t_bp
 from repro_torch.kernels import grad_compress as t_kgc
+from repro_torch.kernels import logical_reduce as t_lr
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import popcount as t_pc
 from repro_torch.kernels import word_logical as t_wl
@@ -67,6 +68,124 @@ def test_word_logical_matches_plain_and_numpy(cuda_device, op):
     assert torch.equal(got, t_wl.word_logical_plain(ta, tb, fa, fb, op))
     want = {"and": a & b, "or": a | b, "xor": a ^ b, "andnot": a & ~b}[op]
     assert np.array_equal(t_ops.to_numpy_words(got), want)
+
+
+def _reduce_words(L, C, seed):
+    """(L, C) uint32 words: each 1024-word block of each row random (top
+    bits set on a third of its words), all zeros or all ones; block 0 of
+    row 0 absorbs an AND, the last block of the last row an OR."""
+    rng = np.random.default_rng(seed)
+    m = rng.integers(0, 2**32, size=(L, C), dtype=np.uint32)
+    m[:, ::3] |= np.uint32(0x80000000)
+    nb = -(-C // 1024)
+    kind = np.repeat(rng.random((L, nb)), 1024, axis=1)[:, :C]
+    m[kind < 0.12] = 0
+    m[(kind >= 0.12) & (kind < 0.24)] = 0xFFFFFFFF
+    m[0, :1024] = 0
+    m[-1, -1024:] = 0xFFFFFFFF
+    return m
+
+
+def _reduce_flags(m, kind, seed):
+    """Flag rows of ``m`` (the executor's form: ``np_row_flags`` of the
+    rows zero-padded to whole blocks), with 40% of them DIRTY when
+    conservative; None when absent."""
+    if kind == "absent":
+        return [None] * len(m)
+    C = m.shape[1]
+    rf = t_ops.np_row_flags(np.pad(m, ((0, 0), (0, -C % 1024))))
+    if kind == "conservative":
+        rng = np.random.default_rng(seed)
+        rf = np.where(rng.random(rf.shape) < 0.4, t_wl.DIRTY, rf)
+    return list(torch.from_numpy(rf.astype(np.int32)).unbind(0))
+
+
+def _check_fold(rows, flags, neg, neg_flags, op, want):
+    """One fused call on the card: ceil(rows / MAX_ROWS) launches, words
+    equal to the plain version (on the CPU) and to ``want``, and an exact
+    flag row of the result."""
+    dev = rows[0].device
+    before = t_lr.launches
+    out, out_flags = t_lr.fold(
+        rows, [f if f is None else f.to(dev) for f in flags], neg,
+        [f if f is None else f.to(dev) for f in neg_flags], op)
+    torch.cuda.synchronize()
+    assert t_lr.launches == before + -(-(len(rows) + len(neg))
+                                       // t_lr.MAX_ROWS)
+    plain, plain_flags = t_lr.fold([r.cpu() for r in rows], flags,
+                                   [r.cpu() for r in neg], neg_flags, op)
+    assert torch.equal(out.cpu(), plain)
+    assert torch.equal(out_flags.cpu(), plain_flags)
+    got = t_ops.to_numpy_words(out)
+    assert np.array_equal(got, want)
+    C = len(got)
+    assert np.array_equal(out_flags.cpu().numpy(), t_lr.row_flags(
+        out.cpu()[None])[0].numpy())
+    if C % 1024 == 0:
+        assert np.array_equal(out_flags.cpu().numpy(),
+                              t_ops.np_row_flags(got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["exact", "conservative", "absent"])
+@pytest.mark.parametrize("C", [1024, 2049, 65536, 131072])
+@pytest.mark.parametrize("L", [2, 3, 8, 64, 100, 300])
+def test_logical_reduce_matches_plain_and_numpy(cuda_device, L, C, flags):
+    m = _reduce_words(L, C, L * C)
+    fl = _reduce_flags(m, flags, L + C)
+    rows = list(t_ops.to_device_words(m, cuda_device).unbind(0))
+    for op, npop in (("and", np.bitwise_and), ("or", np.bitwise_or),
+                     ("xor", np.bitwise_xor)):
+        want = npop.reduce(m, axis=0)
+        _check_fold(rows, fl, [], [], op, want)
+        mat = t_ops.to_device_words(m, cuda_device)
+        got = t_ops.logical_reduce(mat, op, row_flags=None if fl[0] is None
+                                   else torch.stack(fl).to(cuda_device))
+        assert np.array_equal(t_ops.to_numpy_words(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["exact", "conservative", "absent"])
+@pytest.mark.parametrize("C", [2049, 65536])
+@pytest.mark.parametrize("n_pos,n_neg", [(1, 1), (2, 1), (40, 100),
+                                         (3, 200)])
+def test_diff_reduce_matches_plain_and_numpy(cuda_device, n_pos, n_neg, C,
+                                             flags):
+    m = _reduce_words(n_pos + n_neg, C, n_pos * 1000 + n_neg)
+    # dense pos rows, so the AND does not absorb everywhere
+    m[:n_pos] |= np.uint32(0xFFF7FFBF)
+    m[0, :1024] = 0
+    fl = _reduce_flags(m, flags, C)
+    rows = list(t_ops.to_device_words(m, cuda_device).unbind(0))
+    want = np.bitwise_and.reduce(m[:n_pos], axis=0) \
+        & ~np.bitwise_or.reduce(m[n_pos:], axis=0)
+    _check_fold(rows[:n_pos], fl[:n_pos], rows[n_pos:], fl[n_pos:], "and",
+                want)
+    dev_fl = [f if f is None else f.to(cuda_device) for f in fl]
+    got = t_ops.diff_reduce(rows[:n_pos], dev_fl[:n_pos], rows[n_pos:],
+                            dev_fl[n_pos:])
+    assert np.array_equal(t_ops.to_numpy_words(got), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,cols", [(1, 1024), (3, 2048), (0, 1026),
+                                         (2, 65536)])
+def test_logical_reduce_of_unaligned_rows(cuda_device, offset, cols):
+    # views that start off a 16-byte boundary, or rows of a width that is
+    # not a multiple of 4 words: the kernel's 4-byte load form
+    L = 70
+    m = _reduce_words(L, cols + 4, cols)
+    buf = t_ops.to_device_words(m, cuda_device)
+    rows = [buf[i, offset:offset + cols] for i in range(L)]
+    assert rows[1].data_ptr() % 16 or cols % 4
+    sub = m[:, offset:offset + cols]
+    fl = _reduce_flags(sub, "exact", cols)
+    for op, npop in (("and", np.bitwise_and), ("or", np.bitwise_or),
+                     ("xor", np.bitwise_xor)):
+        _check_fold(rows, fl, [], [], op, npop.reduce(sub, axis=0))
+    _check_fold(rows[:30], fl[:30], rows[30:], fl[30:], "and",
+                np.bitwise_and.reduce(sub[:30], axis=0)
+                & ~np.bitwise_or.reduce(sub[30:], axis=0))
 
 
 # the reference's shapes, then the smoke's index matrix (1,500 bitmaps of

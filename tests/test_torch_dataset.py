@@ -182,16 +182,18 @@ def test_plans_and_explain_text_match(built, sort):
 
 
 class _Spy:
-    """Counts the port's dense kernel path (``logical_reduce`` calls)."""
+    """Counts the port's dense kernel path (``logical_reduce`` and
+    ``diff_reduce`` calls)."""
 
     def __init__(self, monkeypatch):
         self.calls = 0
-        real = t_ops.logical_reduce
+        for name in ("logical_reduce", "diff_reduce"):
+            real = getattr(t_ops, name)
 
-        def wrapped(*args, **kwargs):
-            self.calls += 1
-            return real(*args, **kwargs)
-        monkeypatch.setattr(t_ops, "logical_reduce", wrapped)
+            def wrapped(*args, _real=real, **kwargs):
+                self.calls += 1
+                return _real(*args, **kwargs)
+            monkeypatch.setattr(t_ops, name, wrapped)
 
 
 @pytest.mark.parametrize("sort", ["lex", "none"])
