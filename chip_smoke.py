@@ -7,7 +7,7 @@ Builds every CUDA kernel of the port from ``src/repro_torch/csrc`` with
 ``nvcc`` (one process per source, all started together), holds each kernel
 against its plain PyTorch version on the card at its main path's shapes and
 times kernel, plain version and the PyTorch library call, then drives the
-port's three main paths through the entry points a user calls:
+port's main paths through the entry points a user calls:
 
 1. the bitmap engine, ``logical_reduce`` (the fused n-ary AND / OR and
    AND-NOT of the executor's dense path):
@@ -31,7 +31,25 @@ port's three main paths through the entry points a user calls:
    2^31 set bits must wrap to -2^31 as the reference's int32 sum does;
    the OR of 32 bitmaps with 32 others must equal ``a | b``.
 
-2. LM training with EWAH gradient compression, ``block_sqnorms``:
+2. Durability and scale over the same kernel, ``logical_reduce``: both
+   tables built again with 4 word-aligned row shards (all on the one
+   card), saved to the index store, reopened from the memory-mapped
+   files with ``Dataset.open(dir, mmap=True, device="cuda")`` and driven
+   under each backend (the first ``kernel`` pass cold; a second one warm,
+   without the four group-by and top-k statements whose host work
+   dominates); every answer must equal the in-memory cell's and the
+   oracle's.  The
+   fused kernel is checked and timed on one reopened shard's operands.
+   Then, on the sorted store: a ``ShardProcessPool`` of forked workers
+   (the host path: ``auto`` answers, ``kernel`` raises ``ForkSafetyError``)
+   and a thread pool on the kernel path; live ingest (65,536 appended rows
+   in 16 batches, a delete of about 1% of the rows, a second reader that
+   replays the WAL and answers the lighter statements, compaction), each
+   step against NumPy over the live
+   rows, with device memory before and after compaction; and
+   ``optimize()`` on a copy of the unsorted store, sizes before and after.
+
+3. LM training with EWAH gradient compression, ``block_sqnorms``:
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --full \
         --compress 0.25 --steps 5 --batch-size 8 --seq-len 128
@@ -55,7 +73,9 @@ reference package.
 from __future__ import annotations
 
 import functools
+import gc
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -80,6 +100,13 @@ QWEN2_PARAMS = 494_032_768    # qwen2-0.5b's parameter count: its flat gradient
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def release(torch):
+    """Free what the last phase left: unreachable objects first (their
+    device tensors with them), then the allocator's cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # -- timing -------------------------------------------------------------------
@@ -327,10 +354,11 @@ def make_table(synth, n, seed):
     return table, {"sales": sales}
 
 
-def statements(col, table):
+def statements(col, table, cards=None):
     """The statement set as (name, filter expression, terminal), with the
-    NumPy masks of its two filters over ``table``."""
-    cards = table.max(axis=0) + 1
+    NumPy masks of its two filters over ``table``.  ``cards`` (default:
+    those of ``table``) picks the filters' values."""
+    cards = table.max(axis=0) + 1 if cards is None else np.asarray(cards)
     by_card = [int(c) for c in np.argsort(cards)]   # narrowest first
     narrow, wide = by_card[0], by_card[-1]
     second = by_card[-2]
@@ -407,6 +435,14 @@ def same(x, y) -> bool:
     return type(x) is type(y) and x == y
 
 
+def check_same(label, got, want, skip=()):
+    """Every statement of ``got`` (a run of the whole set or of part of
+    it), ``skip`` aside, must equal its answer in ``want``."""
+    bad = [k for k in got if k not in skip and not same(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{label}: differs on {bad}")
+
+
 def run_backend(ds, stmts, backend, torch, wl, lr):
     """Drive every statement once under ``backend``; returns results,
     per-statement host seconds and the launches of this run, of the fused
@@ -447,10 +483,7 @@ def main_path(label, n_rows, sort, torch, wl, lr, synth, Dataset, col,
             + json.dumps(secs))
     base = runs["ewah"][0]
     for key, (res, _, _, _) in runs.items():
-        bad = [k for k in base if not same(res[k], base[k])]
-        if bad:
-            raise AssertionError(f"{label}: backend {key} differs from ewah "
-                                 f"on {bad}")
+        check_same(f"{label}: backend {key} against ewah", res, base)
     oracle_check(base, masks, rows, sales, groups)
     if any(runs["ewah"][3].values()):
         raise AssertionError(f"{label}: ewah backend launched a kernel: "
@@ -472,7 +505,7 @@ def main_path(label, n_rows, sort, torch, wl, lr, synth, Dataset, col,
     log(f"{label}: dense operand cache entries={len(cache)} "
         f"bytes={cache_bytes} cuda_allocated={torch.cuda.memory_allocated()}")
     log(f"{label}: oracle ok; backends agree")
-    return ds, stmts, {k: v[3] for k, v in runs.items()}
+    return ds, stmts, {k: v[3] for k, v in runs.items()}, runs["ewah"][0]
 
 
 def record_reductions(lr, ds, stmts, name="andnot.count"):
@@ -703,6 +736,322 @@ def index_profile_phase(torch, ops, pc, bp, wl, timer, ds):
     del bits, words
     torch.cuda.empty_cache()
     return out
+
+
+# -- store-and-live phase: the index store, shards, WAL and live ingest -------
+
+STORE_SHARDS = 4              # word-aligned row shards, all on the one card
+APPEND_BATCHES = 16
+APPEND_ROWS = 4096
+POOL_WORKERS = 4
+# the statements whose host interval work dominates the set's time; the
+# phase's repeat passes (warm, WAL replay) leave them out to keep the smoke
+# well inside its time limit
+HEAVY_TERMS = (".group_by", ".top_k", ".top_k_sales", ".group2_sum")
+DEVICE = "cuda"               # the phase's device; its CPU test sets "cpu"
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).iterdir() if f.is_file())
+
+
+def dense_cache_bytes(index) -> int:
+    """Bytes of the dense operands cached on the card by every shard."""
+    return sum(w.nbytes + f.nbytes for sh in index.shards
+               for w, f in sh.dense_cache.values())
+
+
+def store_cell(label, build, torch, wl, lr, Dataset, col, memory_results,
+               root, must_launch):
+    """Build the cell with ``STORE_SHARDS`` shards (``build()``), save it,
+    reopen it from the memory-mapped files on the card, and drive the
+    statement set under each backend: the first ``kernel`` pass after the
+    open (cold: page-in, decode and upload of every operand), ``ewah``,
+    ``auto``, and ``kernel`` again, without ``HEAVY_TERMS``, over the same
+    shards with fresh result caches (warm: every operand already on the
+    card).  Every pass must equal the
+    in-memory cell's results and the NumPy oracle.  Returns the opened
+    dataset, the statements, the oracle's rows and sales, the launches of
+    each pass and the store directory."""
+    from repro_torch.core import ShardedIndex
+    t0 = time.perf_counter()
+    built = build()
+    build_s = time.perf_counter() - t0
+    rows = built.table
+    sales = np.concatenate([sh.measure("sales") for sh in built.index.shards])
+    d = Path(root) / label
+    t0 = time.perf_counter()
+    built.save(str(d))
+    save_s = time.perf_counter() - t0
+    size_words = built.size_words
+    del built
+    t0 = time.perf_counter()
+    ds = Dataset.open(str(d), mmap=True, device=DEVICE)
+    open_s = time.perf_counter() - t0
+    log(f"store {label}: rows={ds.n_rows} shards={ds.n_shards} "
+        f"size_words={size_words} build_s={build_s} save_s={save_s} "
+        f"disk_bytes={dir_bytes(d)} open_s={open_s}")
+    stmts, masks, groups = statements(col, rows)
+    light = [st for st in stmts if not st[0].endswith(HEAVY_TERMS)]
+    warm = Dataset(ShardedIndex(ds.index.shards, column_names=NAMES),
+                   device=DEVICE)
+    runs = {}
+    for key, target, backend, chosen in (
+            ("kernel_cold", ds, "kernel", stmts), ("ewah", ds, "ewah", stmts),
+            ("auto", ds, "auto", stmts),
+            ("kernel_warm", warm, "kernel", light)):
+        runs[key] = run_backend(target, chosen, backend, torch, wl, lr)
+        res, secs, total, launches = runs[key]
+        first = stmts[0][0]
+        log(f"store {label} backend={key}: launches={launches} "
+            f"total_s={total} first_statement={first} first_s={secs[first]} "
+            f"dense_cache_bytes={dense_cache_bytes(ds.index)} "
+            f"cuda_allocated={torch.cuda.memory_allocated()}")
+        check_same(f"store {label} {key} against the in-memory cell", res,
+                   memory_results)
+    oracle_check(runs["ewah"][0], masks, rows, sales, groups)
+    if any(runs["ewah"][3].values()):
+        raise AssertionError(f"store {label}: ewah launched a kernel")
+    for key in must_launch:
+        if runs[key][3]["logical_reduce"] <= 0:
+            raise AssertionError(f"store {label}: {key} never launched "
+                                 f"logical_reduce")
+    log(f"store {label}: oracle ok; every backend equals the in-memory cell")
+    return ds, stmts, rows, sales, {k: v[3] for k, v in runs.items()}, d
+
+
+def live_oracle(col, rows, cards, alive):
+    """Masks of the statement set (its values picked by the base's
+    ``cards``) over ``rows``, restricted to ``alive``."""
+    _, masks, groups = statements(col, rows, cards)
+    return {k: m & alive for k, m in masks.items()}, groups
+
+
+def live_phase(torch, wl, lr, Dataset, col, d, rows, sales, stmts):
+    """Live ingest on the reopened sorted store: appends with their sales
+    values, a delete of about 1% of the rows, the statement set under
+    ``kernel`` against NumPy over (base + appended) - deleted, a second
+    reader that replays the WAL, compaction, and the statements again
+    against NumPy over the compacted, re-sorted rows.  Returns the launches
+    of its three statement passes."""
+    ds = Dataset.open(str(d), live=True, device=DEVICE)
+    live = ds.index
+    rng = np.random.default_rng(SEED + 5)
+    cards = rows.max(axis=0) + 1
+    batches = [(np.stack([rng.integers(0, int(c), APPEND_ROWS)
+                          for c in cards], axis=1),
+                rng.integers(0, 1_000_000, APPEND_ROWS))
+               for _ in range(APPEND_BATCHES)]
+    t0 = time.perf_counter()
+    for r, s in batches:
+        live.append(r, measures={"sales": s})
+    append_s = time.perf_counter() - t0
+    n_app = APPEND_BATCHES * APPEND_ROWS
+    narrow = int(np.argmin(cards))
+    v_del = int(rng.integers(0, int(cards[narrow])))
+    combined = np.concatenate([rows] + [r for r, _ in batches])
+    sales_c = np.concatenate([sales] + [s for _, s in batches])
+    alive = combined[:, narrow] != v_del
+    t0 = time.perf_counter()
+    removed = ds.delete(col(NAMES[narrow]) == v_del)
+    torch.cuda.synchronize()
+    delete_s = time.perf_counter() - t0
+    stats = live.stats()
+    log(f"live: appended {n_app} rows in {APPEND_BATCHES} batches "
+        f"append_s={append_s} rows_per_s={n_app / append_s} "
+        f"delete_s={delete_s} deleted={removed} "
+        f"({removed / len(combined):.4%} of rows) "
+        f"wal_bytes={stats['wal_bytes']} wal_frames={stats['wal_frames']}")
+    if removed != int((~alive).sum()):
+        raise AssertionError(f"live: delete removed {removed} rows, NumPy "
+                             f"{int((~alive).sum())}")
+    masks, groups = live_oracle(col, combined, cards, alive)
+    out = {}
+    res, _, total, out["live"] = run_backend(ds, stmts, "kernel", torch,
+                                             wl, lr)
+    oracle_check(res, masks, combined, sales_c, groups)
+    log(f"live backend=kernel: launches={out['live']} total_s={total}; "
+        f"oracle over (base + appended) - deleted ok")
+    t0 = time.perf_counter()
+    replayed = Dataset.open(str(d), device=DEVICE)
+    replay_s = time.perf_counter() - t0
+    light = [st for st in stmts if not st[0].endswith(HEAVY_TERMS)]
+    r2, _, total2, out["replayed"] = run_backend(replayed, light, "kernel",
+                                                 torch, wl, lr)
+    check_same("live: the WAL replay", r2, res)
+    log(f"live: second reader replayed the WAL: open_s={replay_s} "
+        f"pending_rows={replayed.index.pending_rows} launches="
+        f"{out['replayed']} total_s={total2}; equals the first reader")
+    replayed.index.close()
+    del replayed, r2
+    gc.collect()
+    cache_before = dense_cache_bytes(live.base)
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    info = ds.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    gc.collect()
+    mem_after = torch.cuda.memory_allocated()
+    log(f"live: compact_s={compact_s} info={json.dumps(info)} "
+        f"disk_bytes={dir_bytes(d)} dense_cache_bytes before="
+        f"{cache_before} after={dense_cache_bytes(live.base)} "
+        f"cuda_allocated before={mem_before} after={mem_after}")
+    if mem_before - mem_after < cache_before:
+        raise AssertionError(f"live: compaction freed "
+                             f"{mem_before - mem_after} bytes of the card, "
+                             f"the old base cached {cache_before}")
+    kept, kept_sales = combined[alive], sales_c[alive]
+    order = ds.sort_order
+    perm = np.lexsort(tuple(kept[:, c] for c in reversed(order)))
+    kept, kept_sales = kept[perm], kept_sales[perm]
+    masks, groups = live_oracle(col, kept, cards, np.ones(len(kept), bool))
+    r3, _, total3, out["compacted"] = run_backend(ds, stmts, "kernel",
+                                                  torch, wl, lr)
+    oracle_check(r3, masks, kept, kept_sales, groups)
+    check_same("live: compaction", r3, res, skip=("in.rows100",
+                                                   "andnot.rows100"))
+    log(f"live backend=kernel after compaction: launches="
+        f"{out['compacted']} total_s={total3}; oracle over the re-sorted "
+        f"live rows ok")
+    for key, launches in out.items():
+        if launches["logical_reduce"] <= 0:
+            raise AssertionError(f"live: {key} never launched logical_reduce")
+    ds.index.close()
+    return out
+
+
+def pool_phase(torch, wl, lr, index, stmts):
+    """Shard pools on the reopened sorted store, after the parent launched
+    kernels: forked workers (``ShardProcessPool``) answer the count
+    statements under ``auto`` on the host as the parent does in process,
+    and refuse an explicit ``kernel`` with ``ForkSafetyError``; a thread
+    pool runs each shard's kernel path from its own thread and must equal
+    the sequential run.  Returns the thread pool run's launches."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import ForkSafetyError, ShardedIndex
+    from repro_torch.core.shard import ShardProcessPool
+    exprs = {n: e for n, e, _ in stmts if n.endswith(".count")}
+
+    def fresh():
+        return ShardedIndex(index.shards, column_names=NAMES)
+
+    want = {n: fresh().count(e, backend="auto", device=DEVICE)
+            for n, e in exprs.items()}
+    pool = ShardProcessPool(fresh(), workers=POOL_WORKERS)
+    try:
+        t0 = time.perf_counter()
+        got = {n: pool.index.count(e, backend="auto", pool=pool)
+               for n, e in exprs.items()}
+        pool_s = time.perf_counter() - t0
+        probes = pool.run_shards(("probe",), range(index.n_shards))
+        try:
+            pool.index.count(exprs["andnot.count"], backend="kernel",
+                             pool=pool)
+        except ForkSafetyError as exc:
+            refused = str(exc)
+        else:
+            raise AssertionError("pool: backend=kernel in a forked worker "
+                                 "did not raise ForkSafetyError")
+    finally:
+        pool.shutdown(wait=True)
+    if got != want or {p["backend"] for p in probes} != {"ewah"}:
+        raise AssertionError(f"pool: forked workers {got} {probes}, in "
+                             f"process {want}")
+    log(f"pool: ShardProcessPool({POOL_WORKERS}) counts under auto equal "
+        f"the in-process ones {got} s={pool_s}; worker backends "
+        f"{sorted({p['backend'] for p in probes})}; kernel refused: "
+        f"{refused!r}")
+    seq = fresh()
+    want = {n: seq.count(e, backend="kernel", device=DEVICE)
+            for n, e in exprs.items()}
+    pooled = fresh()
+    lr.launches = 0
+    wl.launches = 0
+    with ThreadPoolExecutor(POOL_WORKERS) as tp:
+        t0 = time.perf_counter()
+        got = {n: pooled.count(e, backend="kernel", pool=tp, device=DEVICE)
+               for n, e in exprs.items()}
+        torch.cuda.synchronize()
+        thread_s = time.perf_counter() - t0
+    launches = {"logical_reduce": lr.launches, "word_logical": wl.launches}
+    if got != want or launches["logical_reduce"] <= 0:
+        raise AssertionError(f"threads: {got} against {want}, launches "
+                             f"{launches}")
+    log(f"threads: ThreadPoolExecutor({POOL_WORKERS}) under kernel equals "
+        f"the sequential run {got} s={thread_s} launches={launches}")
+    return launches
+
+
+def optimize_phase(torch, wl, lr, Dataset, d, stmts, memory_results, root):
+    """``optimize()`` on a saved copy of the unsorted store: the advisor's
+    sort and remaps re-lay it out, and every statement keeps its answer
+    (``rows100`` aside: row ids move with the re-sort).  Prints the size
+    before and after."""
+    copy = Path(root) / "unsorted_optimized"
+    shutil.copytree(d, copy)
+    ds = Dataset.open(str(copy), device=DEVICE)
+    disk_before = dir_bytes(copy)
+    t0 = time.perf_counter()
+    info = ds.optimize()
+    optimize_s = time.perf_counter() - t0
+    res, _, total, launches = run_backend(ds, stmts, "kernel", torch, wl, lr)
+    check_same("optimize", res, memory_results,
+               skip=("in.rows100", "andnot.rows100"))
+    log(f"optimize: unsorted store re-laid out in {optimize_s} s: "
+        f"size_words {info['size_words_before']} -> "
+        f"{info['size_words_after']}, disk_bytes {disk_before} -> "
+        f"{dir_bytes(copy)}, order={info['order']} remapped_columns="
+        f"{info['remapped_columns']}; statements under kernel unchanged "
+        f"(launches={launches} total_s={total})")
+    return launches
+
+
+def store_phase(torch, ops, wl, lr, timer, synth, Dataset, col,
+                memory_results, sorted_memory):
+    """The whole store-and-live phase; returns its reduce rows and the
+    launches of each of its main-path runs.  The sorted store's shards are
+    cut by ``sorted_memory.shard(STORE_SHARDS)`` from the in-memory sorted
+    cell (its retained sorted rows, re-indexed: the 2^22-row sort runs
+    once in the smoke); the unsorted store is built by ``from_rows(...,
+    shards=STORE_SHARDS)``."""
+    launches = {}
+    reduce_rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as root:
+        ds, stmts, rows, sales, runs, d_sorted = store_cell(
+            "sorted", lambda: sorted_memory.shard(STORE_SHARDS), torch, wl,
+            lr, Dataset, col, memory_results["sorted"], root,
+            must_launch=("kernel_cold", "kernel_warm"))
+        launches.update({f"store_sorted_{k}": v for k, v in runs.items()})
+        # the fused kernel on one reopened shard's own cached operands
+        reduce_rows += main_path_case(
+            torch, ops, lr, timer,
+            Dataset(ds.index.shards[0], NAMES, device=DEVICE), stmts,
+            "store sorted shard 0")
+        launches["pool_threads"] = pool_phase(torch, wl, lr, ds.index, stmts)
+        del ds
+        release(torch)
+        launches.update({f"live_{k}": v for k, v in live_phase(
+            torch, wl, lr, Dataset, col, d_sorted, rows, sales,
+            stmts).items()})
+        del rows, sales
+        release(torch)
+        table, measures = make_table(synth, ROWS_UNSORTED, SEED)
+        ds, stmts, _, _, runs, d_unsorted = store_cell(
+            "unsorted", lambda: Dataset.from_rows(
+                table, NAMES, sort="none", measures=measures,
+                shards=STORE_SHARDS, device=DEVICE),
+            torch, wl, lr, Dataset, col, memory_results["unsorted"], root,
+            must_launch=("kernel_cold", "auto", "kernel_warm"))
+        del table, measures
+        launches.update({f"store_unsorted_{k}": v for k, v in runs.items()})
+        del ds
+        release(torch)
+        launches["optimize"] = optimize_phase(
+            torch, wl, lr, Dataset, d_unsorted, stmts,
+            memory_results["unsorted"], root)
+    log(f"store phase launches: {json.dumps(launches)}")
+    return reduce_rows, launches
 
 
 # -- block_sqnorms kernel phase -------------------------------------------------
@@ -960,21 +1309,33 @@ def main() -> int:
     kernel_phase(torch, ops, wl, lr, timer)
     sq_row = block_sqnorms_phase(torch, gc, timer, QWEN2_PARAMS)
 
-    ds, stmts, launches_sorted = main_path(
+    memory_results = {}
+    ds, stmts, launches_sorted, memory_results["sorted"] = main_path(
         "sorted", ROWS_SORTED, "lex", torch, wl, lr, synth, Dataset, col,
         must_launch=("kernel", "kernel_warm"))
     reduce_rows = main_path_case(torch, ops, lr, timer, ds, stmts, "sorted")
     profile_statements(torch, ds, stmts, "kernel", "andnot.")
     index_rows = index_profile_phase(torch, ops, pc, bp, wl, timer, ds)
+    # kept for the store phase, which cuts its shards from the sorted rows;
+    # its operands leave the card so that the phase's memory numbers are
+    # its own
+    sorted_ds = ds
+    sorted_ds.index.dense_cache.clear()
     del ds
     torch.cuda.empty_cache()
-    ds, stmts, launches_unsorted = main_path(
+    ds, stmts, launches_unsorted, memory_results["unsorted"] = main_path(
         "unsorted", ROWS_UNSORTED, "none", torch, wl, lr, synth, Dataset,
         col, must_launch=("kernel", "auto", "kernel_warm"))
     reduce_rows += main_path_case(torch, ops, lr, timer, ds, stmts,
                                   "unsorted")
     profile_statements(torch, ds, stmts, "auto", "andnot.")
     del ds
+    release(torch)
+    store_rows, launches_store = store_phase(torch, ops, wl, lr, timer, synth,
+                                             Dataset, col, memory_results,
+                                             sorted_ds)
+    del sorted_ds
+    reduce_rows += store_rows
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
         model, params, report, sq_launches = training_path(
@@ -994,7 +1355,8 @@ def main() -> int:
                                     "source": cm.source,
                                     "samples": cm.samples}))
 
-    main_launches = [v for runs in (launches_sorted, launches_unsorted)
+    main_launches = [v for runs in (launches_sorted, launches_unsorted,
+                                    launches_store)
                      for v in runs.values()]
     reduce_row = max(reduce_rows, key=lambda r: r["bound_ms"])
     pair_row = index_rows["word_logical"]
@@ -1042,7 +1404,7 @@ def main() -> int:
             "library_ms": row["library_ms"],
         })
     log(f"launches sorted={launches_sorted} unsorted={launches_unsorted} "
-        f"block_sqnorms={sq_launches} index_profile="
+        f"store={launches_store} block_sqnorms={sq_launches} index_profile="
         f"{ {k: r['launches'] for k, r in index_rows.items()} }; "
         f"logical_reduce row: {reduce_row['label']}")
     log(f"total_s={time.perf_counter() - t_start}")

@@ -1,13 +1,17 @@
 """``Dataset``: the one-object façade over the whole fact-table lifecycle.
 
 The paper's pipeline — order columns, sort the fact table, build k-of-N
-EWAH bitmap indexes, query them.  ``Dataset`` owns that composition end to
-end while every piece stays importable for power users:
+EWAH bitmap indexes, persist them, query them — used to be hand-wired from
+four modules (``sorting`` → ``IndexBuilder`` → ``store`` →
+``ShardedIndex``).  ``Dataset`` owns that composition end to end while
+every piece stays importable for power users:
 
     from repro_torch.core import Dataset, col
 
     ds = Dataset.from_rows(table, columns=["region", "day", "user"],
-                           sort="lex")        # device="cuda" by default
+                           sort="lex", shards=4)  # device="cuda" by default
+    ds.save("/data/idx")                      # durable per-shard store files
+    ds = Dataset.open("/data/idx")            # zero-copy mmap warm start
 
     q = ds.query().where(col("region") == 3)
     q.count()                                 #   compressed-domain popcount
@@ -17,15 +21,17 @@ end while every piece stays importable for power users:
 
 The dataset's ``device`` is where the executor's kernel path runs and where
 its dense operands stay cached (``"cuda"`` unless the caller passes
-``"cpu"``; there is no fallback).  This package holds the in-memory,
-monolithic path: sharding, the store, live ingest, re-layout and serving
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+``"cpu"``; there is no fallback).  The store knows nothing of devices: a
+reopened dataset runs on the ``device`` given to ``open``, each shard with
+its own operand cache.  Serving (``serve()``) raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 
 Statements, not just filters: ``query()`` returns a small immutable builder
 whose terminal methods compile to aggregation plan nodes (``PCount`` /
 ``PGroupCount``) evaluated **in the compressed domain** — counts are
 memoized EWAH popcounts, group-by intersects each value bitmap with the
-shared filter by run-interval arithmetic.  No
+shared filter by run-interval arithmetic, and on a sharded index every
+shard returns a partial count (vector) that the coordinator sums.  No
 aggregate ever materializes a global result bitmap, mirroring how
 Lemire/Kaser/Aouiche and the Roaring line evaluate aggregate workloads over
 attribute-value bitmaps without decompressing.
@@ -34,7 +40,7 @@ Out-of-core builds: ``from_rows(..., spill_dir=...)`` streams chunk-sorted
 runs to disk, merges them back in bounded windows and feeds the index
 builder chunk by chunk (full-sort compression, O(chunk + partition)
 memory); ``from_chunks`` accepts a chunk iterator whose total size is
-unknown up front.  Neither needs the store.
+unknown up front.
 """
 from __future__ import annotations
 
@@ -49,11 +55,13 @@ from repro_torch.kernels.ops import resolve_device
 from .expr import Expr
 from .index import WORD_ROWS, BitmapIndex, IndexBuilder
 from .layout import LayoutDecision, LayoutStats
+from .shard import ShardedIndex
 from .sorting import (SortStats, external_merge_sort_perm,
                       external_sorted_chunks, order_columns_freq_aware)
 
 DEFAULT_CHUNK_ROWS = 8192
 
+AnyIndex = Union[BitmapIndex, ShardedIndex]
 Device = Union[str, torch.device]
 
 
@@ -61,6 +69,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in repro_torch yet: it is ported with ROADMAP "
         f"Queue 1 {item}")
+
+
+def _aligned_rows(n: int, parts: int) -> int:
+    """Rows per slice for ``parts`` row-slices of ``n`` rows, rounded up to
+    the 32-bit word quantum so interior shards stay concatenation-exact."""
+    r = -(-max(n, 1) // max(parts, 1))
+    return max(-(-r // WORD_ROWS) * WORD_ROWS, WORD_ROWS)
 
 
 def _table_cards(table: np.ndarray) -> List[int]:
@@ -98,14 +113,15 @@ def top_k_from_values(values: np.ndarray, counts: np.ndarray,
 class Dataset:
     """A queryable fact table: index + names + (optionally) the sorted rows.
 
-    Build with ``from_rows`` / ``from_chunks``; construct directly only to
-    wrap an index you already have (for instance one carried over with
-    ``index_from_numpy``).  The sorted table is retained on in-memory builds
-    (the pipeline's row-permutation bookkeeping) and absent on spilled
-    builds, where rows never lived in memory.
+    Build with ``from_rows`` / ``from_chunks``, reopen with ``open``;
+    construct directly only to wrap an index you already have (for
+    instance one carried over with ``index_from_numpy``).  The sorted
+    table is retained on in-memory builds (it feeds ``shard()`` re-slicing
+    and the pipeline's row-permutation bookkeeping) and absent on spilled
+    builds and store-opened datasets, where rows never lived in memory.
     """
 
-    def __init__(self, index: BitmapIndex,
+    def __init__(self, index: AnyIndex,
                  column_names: Optional[Sequence[str]] = None,
                  table: Optional[np.ndarray] = None,
                  row_perm: Optional[np.ndarray] = None,
@@ -170,8 +186,8 @@ class Dataset:
         (bit-identical permutation to ``lex_sort``); with ``spill_dir`` the
         runs live on disk and sorted chunks stream straight into the index
         builder, so peak memory is O(chunk + partition) and the sorted
-        table is *not* retained.  ``shards > 1`` (word-aligned row shards)
-        raises ``NotImplementedError`` until ``core/shard.py`` is ported;
+        table is *not* retained.  ``shards > 0`` cuts the sorted rows into
+        that many word-aligned row shards (the scale-out unit);
         ``cards`` pins global cardinalities when ``rows`` may not contain
         every value.  ``container`` is ``"run"`` (plain word-aligned
         run-list bitmaps), ``"auto"`` (Roaring-style per-chunk containers
@@ -181,7 +197,8 @@ class Dataset:
 
         ``measures`` declares numeric *measure columns* (``{name: 1-D
         int/float array}``, one value per input row): they are permuted by
-        the same sort as the rows — the data behind
+        the same sort as the rows, sliced along the same shard cuts, and
+        persisted as the store's zero-copy sidecar — the data behind
         ``query().sum("sales")`` and friends.  Integer measures become
         int64, floating ones float64.  Spilled builds (``spill_dir``) do
         not support measures (the row permutation never materializes).
@@ -192,16 +209,13 @@ class Dataset:
         ranks, and the sort + encoders both use the remapped ranks — runs
         get longer, query results stay in original ranks.  ``layout``
         short-circuits both: a pre-frozen ``LayoutDecision`` (e.g. from
-        ``from_chunks``'s streaming collector) is obeyed verbatim and no
-        statistics pass runs here.
+        ``from_chunks``'s streaming collector or ``optimize``) is obeyed
+        verbatim and no statistics pass runs here.
 
         ``device`` is where queries run the kernel path (``"cuda"`` by
         default; raises, before any work, when CUDA is absent).
         """
         device = resolve_device(device)
-        if shards and shards > 1:
-            raise _not_ported("Dataset.from_rows(shards=...)",
-                              "item 10 (core/shard.py)")
         rows = np.asarray(rows)
         if rows.ndim != 2:
             raise ValueError(f"rows must be 2-D, got shape {rows.shape}")
@@ -249,9 +263,9 @@ class Dataset:
             chunks = external_sorted_chunks(
                 rows, chunk_rows, order, spill_dir=spill_dir,
                 stats=sort_stats, remaps=remaps)
-            index = _build_from_chunks(chunks, cards, k, allocation, part,
-                                       names, container=container,
-                                       remaps=remaps)
+            index = _build_from_chunks(chunks, n, cards, k, allocation,
+                                       shards, part, names,
+                                       container=container, remaps=remaps)
             return cls(index, names, dir_path=None, sort_order=order,
                        cards=cards, k=k, allocation=allocation,
                        partition_rows=part, container=container,
@@ -268,7 +282,7 @@ class Dataset:
             measures = {name: arr[perm] for name, arr in measures.items()}
         index = _build_from_chunks(
             (table[s:s + chunk_rows] for s in range(0, max(n, 1), chunk_rows)),
-            cards, k, allocation, partition_rows, names,
+            n, cards, k, allocation, shards, partition_rows, names,
             container=container, remaps=remaps, measures=measures)
         return cls(index, names, table=table, row_perm=perm,
                    sort_order=order, cards=cards, k=k,
@@ -286,8 +300,8 @@ class Dataset:
         With ``spill_dir`` the incoming chunks are appended to a flat file
         and reopened as a memmap — the sort's random-access input — so the
         raw table is never resident; without it the chunks are concatenated
-        in memory.  Everything else (``sort``, ``k``, ``device``, ...)
-        behaves exactly like ``from_rows``.
+        in memory.  Everything else (``sort``, ``k``, ``shards``,
+        ``device``, ...) behaves exactly like ``from_rows``.
 
         On the spilled path the layout advisor runs *streaming*: a
         ``LayoutStats`` collector observes each chunk as it is appended to
@@ -355,36 +369,297 @@ class Dataset:
                 f"range({d})")
         return order
 
-    # -- not in this package yet ---------------------------------------------
+    # -- durability ---------------------------------------------------------
     def save(self, dir_path: str) -> "Dataset":
-        raise _not_ported("Dataset.save", "item 9 (core/store.py)")
+        """Persist as a sharded store directory (atomic per-shard files +
+        manifest carrying the build recipe); returns self, now bound to the
+        directory so ``serve()`` warm-starts from it."""
+        from .ingest import LiveIndex
+        index = self.index
+        if isinstance(index, LiveIndex):
+            if index.pending_rows:
+                raise RuntimeError(
+                    "save() on a live dataset with pending mutations — "
+                    "compact() first so the base reflects the live rows")
+            index = index.base
+        if not isinstance(index, ShardedIndex):
+            index = ShardedIndex([index])
+        index.save(dir_path, meta=self._recipe_meta())
+        self.dir_path = dir_path
+        return self
+
+    def _recipe_meta(self) -> Dict:
+        """The manifest ``meta`` block: build recipe + layout provenance."""
+        return {
+            "sort_order": self.sort_order,
+            "cards": self._cards,
+            "k": self._k,
+            "allocation": self._allocation,
+            "partition_rows": self._partition_rows,
+            "layout": self._layout.to_meta() if self._layout is not None
+            else None,
+        }
 
     @classmethod
-    def open(cls, dir_path: str, *args, **kwargs) -> "Dataset":
-        raise _not_ported("Dataset.open", "item 9 (core/store.py)")
+    def open(cls, dir_path: str, mmap: bool = True,
+             verify: Optional[bool] = None,
+             live: Optional[bool] = None,
+             device: Device = "cuda") -> "Dataset":
+        """Warm start: reopen a saved dataset as zero-copy memmap views.
+
+        Open cost is metadata-only; bitmap pages fault in as queries touch
+        them.  The manifest's build recipe (sort order, cards, encoding)
+        is restored so ``explain``/``shard`` diagnostics stay meaningful.
+
+        ``live=True`` attaches the WAL-backed mutable layer immediately;
+        ``live=None`` (default) attaches it automatically when the manifest
+        names a write-ahead log that exists on disk (i.e. the dataset was
+        served live before — possibly with unreplayed mutations from a
+        crash); ``live=False`` opens read-only regardless.
+
+        ``device`` is where the reopened dataset's queries run the kernel
+        path — the store itself is device-free; it raises before any work
+        when it names CUDA and CUDA is absent.
+        """
+        from . import store
+        device = resolve_device(device)
+        index: AnyIndex = ShardedIndex.load(dir_path, mmap=mmap,
+                                            verify=verify)
+        meta = store.manifest_meta(dir_path)
+        ds = cls(index, index.column_names, dir_path=dir_path,
+                 sort_order=meta.get("sort_order"),
+                 cards=meta.get("cards"),
+                 k=int(meta.get("k", 1)),
+                 allocation=meta.get("allocation", "alpha"),
+                 partition_rows=meta.get("partition_rows"),
+                 layout=LayoutDecision.from_meta(meta.get("layout")),
+                 device=device)
+        if live is None:
+            wal_name = meta.get("wal") \
+                or f"wal-{int(meta.get('epoch', 0)):05d}.log"
+            live = os.path.exists(os.path.join(dir_path, wal_name))
+        if live:
+            ds._ensure_live()
+        return ds
+
+    # -- mutation (live ingest) ----------------------------------------------
+    def _ensure_live(self):
+        """Wrap the index in the WAL-backed mutable layer on first mutation.
+
+        Store-bound datasets get a durable WAL next to the shard files
+        (replayed on ``open``); purely in-memory datasets get an
+        in-memory delta with no log.  The retained table (if any) is
+        dropped — it describes only the immutable base from here on.
+        """
+        from .ingest import LiveIndex
+        if isinstance(self.index, LiveIndex):
+            return self.index
+        self.index = LiveIndex(
+            self.index, dir_path=self.dir_path,
+            recipe={"sort_order": self.sort_order,
+                    "k": self._k, "allocation": self._allocation,
+                    "partition_rows": self._partition_rows,
+                    "layout": self._layout.to_meta()
+                    if self._layout is not None else None},
+            device=self.device)
+        self.table = None
+        self.row_perm = None
+        return self.index
 
     def append(self, rows) -> int:
-        raise _not_ported("Dataset.append",
-                          "item 10 (core/wal.py, core/ingest.py)")
+        """Durably append rows (value ranks, one array row per fact row).
+
+        The batch is WAL-framed before it is indexed; queries see the new
+        rows immediately through the base ⊔ delta merge."""
+        return self._ensure_live().append(rows)
 
     def delete(self, where: Expr) -> int:
-        raise _not_ported("Dataset.delete",
-                          "item 10 (core/wal.py, core/ingest.py)")
+        """Durably delete every row matching ``where``; returns how many.
+
+        Evaluated in the compressed domain into per-shard tombstone
+        bitmaps — no shard file is rewritten until compaction."""
+        return self._ensure_live().delete(where)
 
     def compact(self, relayout: bool = False) -> Dict:
-        raise _not_ported("Dataset.compact",
-                          "item 10 (core/wal.py, core/ingest.py)")
+        """Fold pending mutations into a freshly sorted base (and, when
+        store-bound, new shard files + a truncated WAL).  ``relayout=True``
+        re-runs the layout advisor over the merged rows first (see
+        ``LiveIndex.compact``).  Returns the compaction info dict."""
+        info = self._ensure_live().compact(relayout=relayout)
+        if relayout:
+            # the live layer's recipe now carries the advisor's new choice
+            rec = self.index.recipe
+            self.sort_order = rec.get("sort_order")
+            self._layout = LayoutDecision.from_meta(rec.get("layout"))
+        return info
 
+    # -- reshaping ----------------------------------------------------------
     def shard(self, n_shards: int) -> "Dataset":
-        raise _not_ported("Dataset.shard", "item 10 (core/shard.py)")
+        """Re-cut the dataset into ``n_shards`` row shards (a new Dataset).
 
-    def optimize(self, *args, **kwargs) -> Dict:
-        raise _not_ported("Dataset.optimize",
-                          "items 9-10 (core/store.py, core/ingest.py)")
+        In-memory builds re-index from the retained sorted table.  Datasets
+        opened from a store (or spilled builds) are re-cut directly from
+        the compressed index: each column bitmap is sliced at the 32-bit
+        word boundaries of the new shard grid (``ShardedIndex.reshard``),
+        so the rows are never reconstructed.  Live datasets must be
+        compacted first (the delta and tombstones belong to the old grid).
+        """
+        from .ingest import LiveIndex
+        idx = self.index
+        if isinstance(idx, LiveIndex):
+            if idx.pending_rows:
+                raise RuntimeError(
+                    "shard() on a live dataset with pending mutations — "
+                    "compact() first")
+            idx = idx.base
+        if self.table is not None:
+            index: AnyIndex = _build_from_chunks(
+                (self.table[s:s + DEFAULT_CHUNK_ROWS]
+                 for s in range(0, max(len(self.table), 1),
+                                DEFAULT_CHUNK_ROWS)),
+                len(self.table), self._cards or _table_cards(self.table),
+                self._k, self._allocation, int(n_shards),
+                self._partition_rows, self.column_names,
+                container=self._container, remaps=self.remaps,
+                measures=_index_measures(idx))
+            return Dataset(index, self.column_names, table=self.table,
+                           row_perm=self.row_perm, sort_order=self.sort_order,
+                           cards=self._cards, k=self._k,
+                           allocation=self._allocation,
+                           partition_rows=self._partition_rows,
+                           container=self._container, layout=self._layout,
+                           device=self.device)
+        if not isinstance(idx, ShardedIndex):
+            idx = ShardedIndex([idx], column_names=self.column_names)
+        return Dataset(idx.reshard(int(n_shards)), self.column_names,
+                       sort_order=self.sort_order, cards=self._cards,
+                       k=self._k, allocation=self._allocation,
+                       partition_rows=self._partition_rows,
+                       layout=self._layout, device=self.device)
 
-    def serve(self, **service_kwargs):
-        raise _not_ported("Dataset.serve",
-                          "item 11 (serve/query_api.py)")
+    def optimize(self, col_order: Union[str, Sequence[int]] = "auto",
+                 remap: bool = True, *,
+                 spill_dir: Optional[str] = None,
+                 chunk_rows: int = DEFAULT_CHUNK_ROWS,
+                 sort_stats: Optional[SortStats] = None,
+                 shards: Optional[int] = None) -> Dict:
+        """Re-sort an existing dataset into the advisor's physical layout.
+
+        Reconstructs the rows shard by shard from the compressed bitmaps
+        (never more than one shard of rows resident), streams them through
+        the layout advisor + external-merge sort + index builders exactly
+        like a fresh build, and adopts the result in place.  On a
+        store-backed dataset the new shard files land under an
+        ``oNNNNN-`` prefix and the manifest rewrite is the atomic cutover
+        (the same path live-ingest compaction uses): a crash mid-optimize
+        leaves the old manifest naming the old, untouched files, and
+        concurrent readers holding mmaps keep serving the old inodes.
+
+        ``col_order`` is ``"auto"`` (re-run the §4.3 advisor), an explicit
+        column order, or ``"none"``; ``remap`` re-derives the per-column
+        frequency remaps from fresh histograms.  Query results are
+        unchanged — only row order and value encoding move.  Returns an
+        info dict with before/after sizes and the adopted layout.
+        """
+        from .ingest import LiveIndex
+        from . import store as store_mod
+        idx = self.index
+        was_live = isinstance(idx, LiveIndex)
+        if was_live:
+            if idx.pending_rows:
+                raise RuntimeError(
+                    "optimize() on a live dataset with pending mutations — "
+                    "compact() first so the base reflects the live rows")
+            old_live, idx = idx, idx.base
+        if not idx.n_rows:
+            raise ValueError("optimize() on an empty dataset")
+        measures = _index_measures(idx)
+        if measures and spill_dir is not None:
+            raise ValueError(
+                "optimize(spill_dir=...) is not supported on a "
+                "measure-bearing dataset: the re-sort permutation never "
+                "materializes out-of-core, so the sidecar could not follow")
+        size_before = idx.size_words
+        n_shards = int(shards) if shards is not None \
+            else getattr(idx, "n_shards", 1)
+        sort = "lex" if (isinstance(col_order, str) and col_order == "auto") \
+            else col_order
+
+        def _chunks():
+            for sh in (idx.shards if isinstance(idx, ShardedIndex)
+                       else [idx]):
+                if not sh.n_rows:
+                    continue
+                t = sh.reconstruct_rows()
+                for s in range(0, len(t), chunk_rows):
+                    yield t[s:s + chunk_rows]
+
+        new = Dataset.from_chunks(
+            _chunks(), self.column_names, cards=self._cards,
+            spill_dir=spill_dir, sort=sort, remap=remap,
+            k=self._k, allocation=self._allocation,
+            shards=n_shards if n_shards > 1 else 0,
+            partition_rows=self._partition_rows, chunk_rows=chunk_rows,
+            sort_stats=sort_stats, device=self.device)
+        if measures:
+            # the reconstructed chunks streamed in the old row order; the
+            # rebuild's sort permutation maps it onto the new order, and
+            # the sidecar follows it just like a fresh from_rows build
+            perm = new.row_perm
+            _attach_measures(new.index,
+                             {name: (arr[perm] if perm is not None else arr)
+                              for name, arr in measures.items()})
+        # adopt the rebuilt layout in place
+        self.sort_order = new.sort_order
+        self._cards = new._cards
+        self._layout = new._layout
+        self._container = new._container
+        self.row_perm = None  # permutations are relative to the old order
+        info: Dict = {"n_rows": int(new.n_rows),
+                      "size_words_before": int(size_before),
+                      "order": self.sort_order,
+                      "remapped_columns": self._layout.remapped_columns
+                      if self._layout is not None else []}
+        if was_live:
+            old_live.close()
+        if self.dir_path is not None:
+            meta_old = store_mod.manifest_meta(self.dir_path)
+            opt_epoch = int(meta_old.get("opt_epoch", 0)) + 1
+            old_files = store_mod.manifest_shards(self.dir_path)
+            nidx = new.index if isinstance(new.index, ShardedIndex) \
+                else ShardedIndex([new.index],
+                                  column_names=self.column_names)
+            meta = self._recipe_meta()
+            meta["opt_epoch"] = opt_epoch
+            # live-ingest provenance (epoch counter, WAL name) survives the
+            # layout swap — the WAL is empty here, but its name must keep
+            # matching the manifest for the next live open
+            for key in ("epoch", "wal"):
+                if meta_old.get(key) is not None:
+                    meta[key] = meta_old[key]
+            # shard files first, manifest rewrite last: the rename IS the
+            # cutover (identical to the compaction path)
+            store_mod.save_sharded(nidx, self.dir_path, meta=meta,
+                                   prefix=f"o{opt_epoch:05d}-")
+            keep = set(store_mod.manifest_shards(self.dir_path))
+            for name in old_files:
+                if name not in keep:
+                    try:
+                        os.unlink(os.path.join(self.dir_path, name))
+                    except OSError:
+                        pass
+            self.index = ShardedIndex.load(self.dir_path)
+            self.table = None
+            info["opt_epoch"] = opt_epoch
+        else:
+            self.index = new.index
+            self.table = new.table
+        if was_live:
+            self._ensure_live()
+        info["size_words_after"] = int(self.index.size_words
+                                       if not was_live
+                                       else self.index.base.size_words)
+        return info
 
     # -- stats --------------------------------------------------------------
     @property
@@ -393,11 +668,13 @@ class Dataset:
 
     @property
     def n_columns(self) -> int:
-        return len(self.index.columns)
+        idx = self.index
+        return len(idx.columns) if isinstance(idx, BitmapIndex) \
+            else idx.n_columns
 
     @property
     def n_shards(self) -> int:
-        return 1
+        return getattr(self.index, "n_shards", 1)
 
     @property
     def size_words(self) -> int:
@@ -409,7 +686,7 @@ class Dataset:
     @property
     def measure_names(self) -> List[str]:
         """Declared measure columns, in declaration order."""
-        return self.index.measure_names
+        return list(getattr(self.index, "measure_names", []) or [])
 
     # -- querying -----------------------------------------------------------
     def query(self, backend: str = "auto") -> "Query":
@@ -419,34 +696,99 @@ class Dataset:
         return Query(self.index, backend=backend, device=self.device)
 
     def explain(self, e: Expr) -> str:
+        from .ingest import LiveIndex
         from .planner import explain, plan
+        idx = self.index
+        if isinstance(idx, LiveIndex):
+            idx = idx.base  # the delta layer plans the same tree
         head = f"{self._layout.describe()}\n" if self._layout is not None \
             else ""
-        return head + explain(plan(self.index, e))
+        if isinstance(idx, ShardedIndex):
+            return (f"{head}per-shard plans x{idx.n_shards}; shard 0:\n"
+                    + explain(plan(idx.shards[0], e)))
+        return head + explain(plan(idx, e))
+
+    # -- serving ------------------------------------------------------------
+    def serve(self, **service_kwargs):
+        raise _not_ported("Dataset.serve",
+                          "item 11 (serve/query_api.py)")
 
 
-def _build_from_chunks(chunks: Iterable[np.ndarray],
+def _attach_measures(index: AnyIndex,
+                     measures: Optional[Dict[str, np.ndarray]]) -> None:
+    """Attach flat (already row-ordered) measure arrays to an index,
+    slicing along the shard cuts when sharded."""
+    if not measures:
+        return
+    if isinstance(index, ShardedIndex):
+        off = 0
+        for sh in index.shards:
+            sh.measures = {name: arr[off:off + sh.n_rows]
+                           for name, arr in measures.items()}
+            off += sh.n_rows
+    else:
+        index.measures = dict(measures)
+
+
+def _index_measures(index: AnyIndex) -> Optional[Dict[str, np.ndarray]]:
+    """The index's measure sidecar as flat arrays in global row order
+    (concatenating shard slices), or ``None`` when it carries none."""
+    if isinstance(index, ShardedIndex):
+        if not index.shards[0].measures:
+            return None
+        return {name: np.concatenate([np.asarray(sh.measures[name])
+                                      for sh in index.shards])
+                for name in index.shards[0].measures}
+    return dict(index.measures) if index.measures else None
+
+
+def _build_from_chunks(chunks: Iterable[np.ndarray], n_rows: int,
                        cards: Sequence[int], k: int, allocation: str,
-                       partition_rows: Optional[int],
+                       shards: int, partition_rows: Optional[int],
                        names: Optional[Sequence[str]],
                        container: str = "run",
                        remaps: Optional[Sequence] = None,
-                       measures: Optional[Dict] = None) -> BitmapIndex:
-    """Stream row chunks into one monolithic index; ``measures`` (flat
-    arrays in the chunks' row order) attach to the result."""
-    b = IndexBuilder(cards, k=k, allocation=allocation,
-                     partition_rows=partition_rows, column_names=names,
-                     container=container, remaps=remaps)
-    for chunk in chunks:
-        b.append(chunk)
-    index = b.finish()
-    if measures:
-        index.measures = dict(measures)
+                       measures: Optional[Dict] = None) -> AnyIndex:
+    """Stream row chunks into one index — monolithic, or cut into
+    ``shards`` word-aligned row shards built by independent builders.
+    ``measures`` (flat arrays in the chunks' row order) attach to the
+    result, sliced along the same shard cuts."""
+    def builder():
+        return IndexBuilder(cards, k=k, allocation=allocation,
+                            partition_rows=partition_rows,
+                            column_names=names, container=container,
+                            remaps=remaps)
+
+    if shards and shards > 1:
+        shard_rows = _aligned_rows(n_rows, shards)
+        done: List[BitmapIndex] = []
+        cur, filled = builder(), 0
+        for chunk in chunks:
+            chunk = np.asarray(chunk)
+            while len(chunk):
+                take = min(shard_rows - filled, len(chunk))
+                cur.append(chunk[:take])
+                filled += take
+                chunk = chunk[take:]
+                if filled == shard_rows:
+                    done.append(cur.finish())
+                    cur, filled = builder(), 0
+        if filled or not done:
+            done.append(cur.finish())
+        else:
+            cur.abort()
+        index: AnyIndex = ShardedIndex(done, column_names=names)
+    else:
+        b = builder()
+        for chunk in chunks:
+            b.append(chunk)
+        index = b.finish()
+    _attach_measures(index, measures)
     return index
 
 
 class Query:
-    """Immutable statement builder over a (monolithic) index.
+    """Immutable statement builder over an index (monolithic or sharded).
 
     ``where`` AND-composes filters and returns a new ``Query``; terminal
     methods execute.  Aggregate terminals stay in the compressed domain end
@@ -454,20 +796,28 @@ class Query:
     materializes row ids.
     """
 
-    __slots__ = ("_index", "_where", "_backend", "_device")
+    __slots__ = ("_index", "_where", "_backend", "_pool", "_device")
 
-    def __init__(self, index: BitmapIndex, where: Optional[Expr] = None,
-                 backend: str = "auto", device: Device = "cuda"):
+    def __init__(self, index: AnyIndex, where: Optional[Expr] = None,
+                 backend: str = "auto", pool=None, device: Device = "cuda"):
         self._index = index
         self._where = where
         self._backend = backend
+        self._pool = pool
         self._device = resolve_device(device)
 
     def where(self, e: Expr) -> "Query":
         if not isinstance(e, Expr):
             raise TypeError(f"where() takes an Expr, got {e!r}")
         combined = e if self._where is None else (self._where & e)
-        return Query(self._index, combined, self._backend, self._device)
+        return Query(self._index, combined, self._backend, self._pool,
+                     self._device)
+
+    def with_pool(self, pool) -> "Query":
+        """Attach a shard worker pool (``concurrent.futures`` executor or
+        ``ShardProcessPool``) for shard-parallel execution."""
+        return Query(self._index, self._where, self._backend, pool,
+                     self._device)
 
     @property
     def expr(self) -> Optional[Expr]:
@@ -475,11 +825,12 @@ class Query:
 
     # -- terminals ----------------------------------------------------------
     def count(self) -> int:
-        """COUNT(*): memoized compressed-domain popcount — no result
-        bitmap, no row ids."""
+        """COUNT(*): memoized compressed-domain popcount; per-shard partial
+        counts are summed — no result bitmap, no row ids."""
         from .executor import execute_count
         return execute_count(self._index, self._where,
-                             backend=self._backend, device=self._device)
+                             backend=self._backend, pool=self._pool,
+                             device=self._device)
 
     def group_by(self, col, *more) -> "GroupedQuery":
         """GROUP BY one or two columns; two-column grouping aggregates
@@ -495,7 +846,8 @@ class Query:
         are ``None`` when no row matches."""
         from .executor import execute_agg
         return execute_agg(self._index, measure, self._where,
-                           backend=self._backend, device=self._device)
+                           backend=self._backend, pool=self._pool,
+                           device=self._device)
 
     def sum(self, measure):
         from .measures import finalize_scalar
@@ -520,12 +872,19 @@ class Query:
         """The ``k`` heaviest value ranks of ``col`` under the filter —
         by row count (default) or by ``sum(measure)`` — as ``[(value_rank,
         weight), ...]`` sorted by descending weight, ties by ascending
-        rank; values with no matching rows never appear."""
+        rank; values with no matching rows never appear.  On a sharded
+        index this runs the shard-pruned (TPUT-style) two-phase protocol;
+        ordering is identical to the monolithic path by construction."""
         from .executor import execute_group_agg
+        idx = self._index
+        if isinstance(idx, ShardedIndex):
+            return idx.top_k(col, k, self._where, measure=measure,
+                             backend=self._backend, pool=self._pool,
+                             device=self._device)
         if measure is None:
             return top_k_from_counts(self.group_by(col).count(), k)
-        agg = execute_group_agg(self._index, measure, [col], self._where,
-                                backend=self._backend,
+        agg = execute_group_agg(idx, measure, [col], self._where,
+                                backend=self._backend, pool=self._pool,
                                 device=self._device)
         return top_k_from_values(agg["sums"], agg["counts"], k)
 
@@ -538,7 +897,7 @@ class Query:
         from .executor import execute
         from .expr import Const
         e = self._where if self._where is not None else Const(True)
-        bm = execute(self._index, e, backend=self._backend,
+        bm = execute(self._index, e, backend=self._backend, pool=self._pool,
                      device=self._device)
         if limit is None:
             return bm.set_bits()
@@ -559,15 +918,22 @@ class Query:
         from .expr import Const
         e = self._where if self._where is not None else Const(True)
         return execute(self._index, e, backend=self._backend,
-                       device=self._device)
+                       pool=self._pool, device=self._device)
 
     def explain(self) -> str:
-        """Plan tree of the current filter."""
+        """Plan tree(s) of the current filter."""
+        from .ingest import LiveIndex
         from .planner import Planner, explain
-        planner = Planner(self._index)
+        idx = self._index
+        if isinstance(idx, LiveIndex):
+            idx = idx.base
+        target = idx.shards[0] if isinstance(idx, ShardedIndex) else idx
+        planner = Planner(target)
         node = planner.plan(self._where) if self._where is not None \
             else planner.plan_count(None)
-        return explain(node)
+        head = (f"per-shard plans x{idx.n_shards}; shard 0:\n"
+                if isinstance(idx, ShardedIndex) else "")
+        return head + explain(node)
 
 
 class GroupedQuery:
@@ -602,12 +968,14 @@ class GroupedQuery:
         """Per-group row counts under the query's filter: an int64 vector
         of length ``card(col)`` (one column, bit-identical to
         ``np.bincount`` over the matching rows) or a ``(card_a, card_b)``
-        matrix (two columns) — computed from the bitmaps alone."""
+        matrix (two columns) — computed from the bitmaps alone, with
+        per-shard partial vectors summed at the coordinator."""
         q = self._query
         if len(self._cols) == 1:
             from .executor import execute_group_count
             return execute_group_count(q._index, self._cols[0], q._where,
-                                       backend=q._backend, device=q._device)
+                                       backend=q._backend, pool=q._pool,
+                                       device=q._device)
         agg = self.agg(None)
         return agg["counts"].reshape(self._shape(agg))
 
@@ -618,7 +986,7 @@ class GroupedQuery:
         from .executor import execute_group_agg
         q = self._query
         return execute_group_agg(q._index, measure, list(self._cols),
-                                 q._where, backend=q._backend,
+                                 q._where, backend=q._backend, pool=q._pool,
                                  device=q._device)
 
     def _finalized(self, op: str, measure) -> np.ndarray:

@@ -26,8 +26,9 @@ result row comes back to the host for ``EWAH.from_words``.
 cache: physical bitmaps (and their bucketed dense decompressions + flags,
 when the kernel path is taken) are loaded once and reused across all plans
 in the batch.  Constant plan nodes memoize their full-length bitmaps in the
-same cache.  Sharded, live and pooled execution are not in this package
-yet (ROADMAP Queue 1 item 10).
+same cache.  Sharded execution forwards an optional worker pool for
+shard-parallel fan-out (``repro_torch.core.shard``), and every dispatcher
+hands its ``device`` to the executor of each shard and live layer.
 """
 from __future__ import annotations
 
@@ -434,16 +435,41 @@ class Executor:
         return EWAH.from_words(out[:n_words], n_bits)
 
 
-def execute(index: BitmapIndex, e: Union[Expr, PlanNode],
+def _shard_caches(index, cache: Optional[Dict]) -> Optional[List[Dict]]:
+    """Per-shard operand sub-dicts inside one caller-supplied cache, so a
+    persistent cache keeps sharing operands across calls on every
+    statement path (one keying scheme, used by all dispatchers)."""
+    if cache is None:
+        return None
+    return [cache.setdefault(("shard", i), {})
+            for i in range(index.n_shards)]
+
+
+def execute(index, e: Union[Expr, PlanNode],
             backend: Backend = "auto", optimize: bool = True,
-            cache: Optional[Dict] = None, device="cuda") -> EWAH:
-    """Plan (unless given a plan) and evaluate one expression -> EWAH."""
+            cache: Optional[Dict] = None, pool=None, device="cuda") -> EWAH:
+    """Plan (unless given a plan) and evaluate one expression -> EWAH.
+
+    Accepts a monolithic ``BitmapIndex``, a ``ShardedIndex`` or a
+    ``LiveIndex``; the sharded path plans and executes per shard —
+    concurrently when ``pool`` (a ``concurrent.futures`` executor or a
+    ``ShardProcessPool``) is given — then concatenates the EWAH results.
+    """
+    from .shard import ShardedIndex  # local: shard imports this module
+    from .ingest import LiveIndex   # local: ingest imports this module
+    if isinstance(index, LiveIndex):
+        return index.execute(e, backend=backend, optimize=optimize,
+                             pool=pool, device=device)
+    if isinstance(index, ShardedIndex):
+        return index.execute(e, backend=backend, optimize=optimize,
+                             caches=_shard_caches(index, cache), pool=pool,
+                             device=device)
     node = plan(index, e, optimize=optimize) if isinstance(e, Expr) else e
     return Executor(index, backend=backend, cache=cache,
                     device=device).run(node)
 
 
-def execute_rows(index: BitmapIndex, e: Union[Expr, PlanNode],
+def execute_rows(index, e: Union[Expr, PlanNode],
                  backend: Backend = "auto", optimize: bool = True,
                  device="cuda") -> np.ndarray:
     """Evaluate and return matching row ids (sorted)."""
@@ -463,46 +489,89 @@ def _interval_coverage(fs: np.ndarray, fe: np.ndarray,
     return np.where(i >= 0, pref[i0] + inside, 0)
 
 
-def execute_count(index: BitmapIndex, e: Optional[Expr] = None,
+def execute_count(index, e: Optional[Expr] = None,
                   backend: Backend = "auto", optimize: bool = True,
-                  cache: Optional[Dict] = None, device="cuda") -> int:
+                  cache: Optional[Dict] = None, pool=None,
+                  device="cuda") -> int:
     """COUNT(*) of a filter (``e=None`` counts all rows), computed in the
-    compressed domain."""
+    compressed domain — on a ``ShardedIndex`` per-shard partial counts are
+    summed at the coordinator, never a concatenated result bitmap."""
+    from .shard import ShardedIndex
+    from .ingest import LiveIndex
+    if isinstance(index, LiveIndex):
+        return index.count(e, backend=backend, optimize=optimize, pool=pool,
+                           device=device)
+    if isinstance(index, ShardedIndex):
+        return index.count(e, backend=backend, optimize=optimize,
+                           caches=_shard_caches(index, cache), pool=pool,
+                           device=device)
     node = Planner(index, optimize=optimize).plan_count(e)
     return Executor(index, backend=backend, cache=cache,
                     device=device).run_count(node)
 
 
-def execute_group_count(index: BitmapIndex, col, e: Optional[Expr] = None,
+def execute_group_count(index, col, e: Optional[Expr] = None,
                         backend: Backend = "auto", optimize: bool = True,
-                        cache: Optional[Dict] = None,
+                        cache: Optional[Dict] = None, pool=None,
                         device="cuda") -> np.ndarray:
     """GROUP BY ``col`` COUNT(*) under filter ``e`` -> int64 array of
-    length ``card(col)`` (a ``np.bincount``-shaped result)."""
+    length ``card(col)`` (a ``np.bincount``-shaped result).  Sharded
+    indexes merge per-shard partial count vectors by summation."""
+    from .shard import ShardedIndex
+    from .ingest import LiveIndex
+    if isinstance(index, LiveIndex):
+        return index.group_count(col, e, backend=backend, optimize=optimize,
+                                 pool=pool, device=device)
+    if isinstance(index, ShardedIndex):
+        return index.group_count(col, e, backend=backend, optimize=optimize,
+                                 caches=_shard_caches(index, cache),
+                                 pool=pool, device=device)
     node = Planner(index, optimize=optimize).plan_group_count(col, e)
     return Executor(index, backend=backend, cache=cache,
                     device=device).run_group_count(node)
 
 
-def execute_agg(index: BitmapIndex, measure: str, e: Optional[Expr] = None,
+def execute_agg(index, measure: str, e: Optional[Expr] = None,
                 backend: Backend = "auto", optimize: bool = True,
-                cache: Optional[Dict] = None, device="cuda"):
+                cache: Optional[Dict] = None, pool=None, device="cuda"):
     """Scalar ``(sum, count, min, max)`` of ``measure`` under filter ``e``
     (``e=None`` aggregates all rows), computed by interval-slicing the
-    measure sidecar."""
+    measure sidecar — sharded indexes merge per-shard partial tuples at
+    the coordinator (``repro_torch.core.measures.merge_scalar_aggs``)."""
+    from .shard import ShardedIndex
+    from .ingest import LiveIndex
+    if isinstance(index, LiveIndex):
+        return index.agg(measure, e, backend=backend, optimize=optimize,
+                         pool=pool, device=device)
+    if isinstance(index, ShardedIndex):
+        return index.agg(measure, e, backend=backend, optimize=optimize,
+                         caches=_shard_caches(index, cache), pool=pool,
+                         device=device)
     node = Planner(index, optimize=optimize).plan_agg(measure, e)
     return Executor(index, backend=backend, cache=cache,
                     device=device).run_agg(node)
 
 
-def execute_group_agg(index: BitmapIndex, measure: Optional[str], cols,
+def execute_group_agg(index, measure: Optional[str], cols,
                       e: Optional[Expr] = None,
                       backend: Backend = "auto", optimize: bool = True,
-                      cache: Optional[Dict] = None, device="cuda") -> Dict:
+                      cache: Optional[Dict] = None, pool=None,
+                      device="cuda") -> Dict:
     """GROUP BY one or two columns, aggregating ``measure`` (or counting
     rows when ``measure`` is ``None``) under filter ``e``.  Returns the
     partial-aggregate dict of ``Executor.run_group_agg``; project it onto
-    one op with ``repro_torch.core.measures.finalize_group``."""
+    one op with ``repro_torch.core.measures.finalize_group``.  Sharded
+    indexes merge per-shard partials elementwise."""
+    from .shard import ShardedIndex
+    from .ingest import LiveIndex
+    if isinstance(index, LiveIndex):
+        return index.group_agg(measure, cols, e, backend=backend,
+                               optimize=optimize, pool=pool, device=device)
+    if isinstance(index, ShardedIndex):
+        return index.group_agg(measure, cols, e, backend=backend,
+                               optimize=optimize,
+                               caches=_shard_caches(index, cache),
+                               pool=pool, device=device)
     node = Planner(index, optimize=optimize).plan_group_agg(measure, cols, e)
     return Executor(index, backend=backend, cache=cache,
                     device=device).run_group_agg(node)
@@ -514,21 +583,31 @@ class QueryBatch:
     Plans are built up front, then all plans execute against one operand
     cache, so a bitmap referenced by several queries (the common case for
     dashboard-style workloads: same dimensions, different slices) is
-    concatenated from its partitions exactly once.
+    concatenated from its partitions — and uploaded, on the kernel path —
+    exactly once.
     """
 
     def __init__(self, exprs: Sequence[Expr]):
         self.exprs = list(exprs)
 
-    def execute(self, index: BitmapIndex, backend: Backend = "auto",
-                optimize: bool = True, device="cuda") -> List[EWAH]:
+    def execute(self, index, backend: Backend = "auto",
+                optimize: bool = True, pool=None,
+                device="cuda") -> List[EWAH]:
+        from .shard import ShardedIndex
+        if isinstance(index, ShardedIndex):
+            # one operand cache per shard, shared across the whole batch
+            caches: List[Dict] = [{} for _ in index.shards]
+            return [index.execute(e, backend=backend, optimize=optimize,
+                                  caches=caches, pool=pool, device=device)
+                    for e in self.exprs]
         plans = [plan(index, e, optimize=optimize) for e in self.exprs]
         ex = Executor(index, backend=backend, cache={}, device=device)
         return [ex.run(p) for p in plans]
 
-    def execute_rows(self, index: BitmapIndex, backend: Backend = "auto",
-                     optimize: bool = True,
+    def execute_rows(self, index, backend: Backend = "auto",
+                     optimize: bool = True, pool=None,
                      device="cuda") -> List[np.ndarray]:
         return [bm.set_bits()
                 for bm in self.execute(index, backend=backend,
-                                       optimize=optimize, device=device)]
+                                       optimize=optimize, pool=pool,
+                                       device=device)]

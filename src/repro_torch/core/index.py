@@ -117,9 +117,12 @@ class IndexBuilder:
     therefore yields *full-sort* compression for tables that never fit in
     memory at once.
 
-    ``store_path`` (a streaming persist into the index store) raises
-    ``NotImplementedError``: the store is ported with ROADMAP Queue 1
-    item 9.
+    With ``store_path`` set, every completed partition is emitted straight
+    into a durable ``repro_torch.core.store`` writer instead of being
+    retained in memory — the streaming build becomes a streaming *persist*,
+    peak memory stays O(partition) end to end, and ``finish()`` returns the
+    index reopened from the store as read-only memmap views (zero-copy warm
+    start over the file just written).
 
     Cardinalities must be known up front (they size the k-of-N encoders);
     chunk values are validated against them as they arrive.
@@ -166,10 +169,13 @@ class IndexBuilder:
         self._bounds: List[int] = [0]
         self._n_rows = 0
         self._finished = False
+        self.store_path = store_path
+        self._writer = None
         if store_path is not None:
-            raise NotImplementedError(
-                "IndexBuilder(store_path=...) needs the index store, which "
-                "is ported with ROADMAP Queue 1 item 9 (core/store.py)")
+            from .store import StoreWriter  # local: store imports this module
+            self._writer = StoreWriter(
+                store_path, [c.encoder for c in self.columns],
+                self.column_names)
 
     def append(self, chunk: np.ndarray) -> "IndexBuilder":
         """Add a chunk of rows (any length, including ragged); returns self."""
@@ -200,22 +206,29 @@ class IndexBuilder:
     def finish(self, mmap: bool = True) -> BitmapIndex:
         """Flush the tail partition and return the finished index.
 
-        ``mmap`` is kept for signature parity with the reference; it only
-        applies to store-mode builds, which this package does not have
-        yet."""
+        In store mode the writer is finalized (header + atomic rename) and
+        the index returned is the store *reopened* — memmap-backed when
+        ``mmap`` (the default), so the build's partitions are already gone
+        from memory by the time the caller sees the result."""
         if self._finished:
             raise RuntimeError("IndexBuilder.finish() was already called")
         if self._buffered:
             self._close_partition(self._take(self._buffered))
         self._finished = True
+        if self._writer is not None:
+            from .store import load
+            self._writer.close()
+            return load(self.store_path, mmap=mmap)
         return BitmapIndex(
             n_rows=self._n_rows, columns=self.columns,
             partition_bounds=np.asarray(self._bounds, dtype=np.int64),
             column_names=self.column_names)
 
     def abort(self) -> None:
-        """Discard the build."""
+        """Discard the build (removes a store writer's temp file)."""
         self._finished = True
+        if self._writer is not None:
+            self._writer.abort()
 
     # -- internals ---------------------------------------------------------
     def _take(self, n: int) -> np.ndarray:
@@ -237,8 +250,12 @@ class IndexBuilder:
 
     def _close_partition(self, part: np.ndarray) -> None:
         """Compile one partition of rows into per-column EWAH bitmaps
-        (Algorithm 3: scatter (row, bitmap) pairs, group, append runs)."""
+        (Algorithm 3: scatter (row, bitmap) pairs, group, append runs).
+
+        In store mode the partition's bitmaps go straight to the writer and
+        are dropped — the builder never holds more than this one partition."""
         rows_part = len(part)
+        part_sink: List[List[EWAH]] = []
         for c, col in enumerate(self.columns):
             enc = col.encoder
             codes = enc.codes(part[:, c])  # (rows_part, k)
@@ -253,8 +270,13 @@ class IndexBuilder:
                 pos = rows_s[idx[b]: idx[b + 1]]
                 bms.append(EWAH.from_positions(pos, rows_part,
                                                container=self.container))
-            col.bitmaps.append(bms)
-            col.invalidate_sizes()
+            if self._writer is None:
+                col.bitmaps.append(bms)
+                col.invalidate_sizes()
+            else:
+                part_sink.append(bms)
+        if self._writer is not None:
+            self._writer.add_partition(part_sink, rows_part)
         self._bounds.append(self._bounds[-1] + rows_part)
 
 

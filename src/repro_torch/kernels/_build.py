@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -23,6 +24,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# first calls from several threads (shards run from a pool) build and load
+# each library once
+_libs_lock = threading.Lock()
 
 
 def nvcc() -> str:
@@ -74,8 +78,9 @@ def build(*names: str) -> Dict[str, str]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
-    if lib is None:
-        build(name)
-        lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
+    with _libs_lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build(name)
+            lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
     return lib

@@ -24,6 +24,7 @@ from __future__ import annotations
 import array
 import ctypes
 import functools
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -36,8 +37,11 @@ OPS = ("and", "or", "xor")
 MAX_ROWS = 128     # operand rows one launch takes (csrc: kMaxRows)
 FLAG_COLS = 1024   # words per flag
 
-# CUDA kernel launches since import (or since a caller reset it)
+# CUDA kernel launches since import (or since a caller reset it); shards
+# of one statement may launch from the threads of a pool, so the count is
+# taken under a lock
 launches = 0
+_launches_lock = threading.Lock()
 
 Flags = Optional[torch.Tensor]
 
@@ -201,5 +205,6 @@ def _launch(rows: Sequence[torch.Tensor], flags: Sequence[Flags],
                  OPS.index(op), int(vec), stream)
     if err:
         raise RuntimeError(f"logical_reduce launch failed: CUDA error {err}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out, out_flags

@@ -312,22 +312,65 @@ def test_from_chunks_and_spill_builds_match_reference(data, tmp_path):
         rs.query().where(e_r).group_by("a").count().tolist()
 
 
-@pytest.mark.parametrize("call", [
-    lambda ds: ds.save("/nonexistent"),
-    lambda ds: ds.shard(2),
-    lambda ds: ds.append(np.zeros((1, 4), np.int64)),
-    lambda ds: ds.delete(t_col("a") == 1),
-    lambda ds: ds.compact(),
-    lambda ds: ds.optimize(),
-    lambda ds: ds.serve(),
-    lambda ds: t_dataset.Dataset.open("/nonexistent"),
-    lambda ds: t_dataset.Dataset.from_rows(ds.table, NAMES, shards=2,
-                                           device="cpu"),
-])
-def test_later_slices_raise_not_implemented(built, call):
+def test_later_slices_raise_not_implemented(built):
     _, t = built["lex"]
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        call(t)
+        t.serve()
+
+
+def _live_statements(ds, col, backend):
+    out = []
+    for e in (col("a").isin([1, 2, 3, 5, 8]),
+              col("b").isin([0, 1, 2, 3]) & ~(col("c") == 1)):
+        q = ds.query(backend).where(e)
+        out += [q.count(), q.group_by("c").count().tolist(),
+                q.group_by("a", "b").count().tolist(), q.top_k("d", 4),
+                q.rows().tolist()]
+    return out
+
+
+def _mutated(col, ds, rows):
+    ds.append(rows)
+    return ds, ds.delete(col("d").isin([0, 2]))
+
+
+# the calls that later slices of the port made work: each on a dataset of
+# either package, returning (dataset to query, value to compare)
+LATER_SLICE_CALLS = {
+    "save": lambda D, col, ds, d: (ds, sorted(
+        (f, open(os.path.join(d, f), "rb").read())
+        for f in os.listdir(ds.save(d).dir_path))),
+    "shard": lambda D, col, ds, d: (ds.shard(2), ds.shard(2).n_shards),
+    "append": lambda D, col, ds, d: (ds, ds.append(ds.table[:700][::-1])),
+    "delete": lambda D, col, ds, d: _mutated(col, ds, ds.table[:300]),
+    "compact": lambda D, col, ds, d: (ds, (_mutated(col, ds, ds.table[:500]),
+                                           ds.compact())[1]),
+    "optimize": lambda D, col, ds, d: (ds, ds.optimize()),
+    "open": lambda D, col, ds, d: (D.open(ds.save(d).dir_path,
+                                          **({"device": "cpu"} if D is
+                                             t_dataset.Dataset else {})),
+                                   None),
+    "from_rows_shards": lambda D, col, ds, d: (D.from_rows(
+        ds.table, NAMES, sort="none", shards=3,
+        **({"device": "cpu"} if D is t_dataset.Dataset else {})), None),
+}
+
+
+@pytest.mark.parametrize("call", list(LATER_SLICE_CALLS))
+def test_later_slices_work_like_reference(data, tmp_path, call):
+    table, _ = data
+    table = table[:4096]
+    r = r_dataset.Dataset.from_rows(table, NAMES, sort="lex")
+    t = t_dataset.Dataset.from_rows(table, NAMES, sort="lex", device="cpu")
+    fn = LATER_SLICE_CALLS[call]
+    r_ds, r_val = fn(r_dataset.Dataset, r_col, r, str(tmp_path / "r"))
+    t_ds, t_val = fn(t_dataset.Dataset, t_col, t, str(tmp_path / "t"))
+    assert t_val == r_val
+    assert t_ds.device == t.device
+    assert t_ds.n_rows == r_ds.n_rows and t_ds.n_shards == r_ds.n_shards
+    want = _live_statements(r_ds, r_col, "ewah")
+    for backend in BACKENDS:
+        assert _live_statements(t_ds, t_col, backend) == want
 
 
 def test_default_device_is_cuda_and_never_falls_back(data):
@@ -371,6 +414,10 @@ def test_package_imports_neither_jax_nor_reference():
         "import repro_torch.launch.train, repro_torch.train.loop\n"
         "import repro_torch.distributed.checkpoint\n"
         "import repro_torch.distributed.grad_compression\n"
+        "import repro_torch.core.store, repro_torch.core.shard\n"
+        "import repro_torch.core.wal, repro_torch.core.ingest\n"
+        "import repro_torch.core.lru, repro_torch.core.wah\n"
+        "import repro_torch.core.query\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
