@@ -49,6 +49,21 @@ port's main paths through the entry points a user calls:
    rows, with device memory before and after compaction; and
    ``optimize()`` on a copy of the unsorted store, sizes before and after.
 
+   Serving, over a copy of the saved sorted store taken before live
+   ingest: ``Dataset.open(dir, mmap=True, device="cuda").serve(
+   backend="kernel")`` on its default shard pool (threads on the card)
+   mounted over HTTP answers the statement set as JSON statements (cold,
+   after ``/admin/invalidate``, warm with fresh result caches, cached) and
+   as SQL, one batch and ``/stats``; ``auto`` under a forked
+   ``ShardProcessPool`` (host ``ewah`` in its workers); a live
+   pass (``/ingest``, ``/delete``, counts against NumPy) on another copy;
+   then ``LocalCluster``: 3 spawned workers on the card (replication 2,
+   ``kernel``) behind the coordinator, every statement before and after
+   one worker is killed with SIGKILL (exact answers, failovers, nothing
+   degraded), the worker restarted; and one in-process ``ShardWorker``
+   behind a ``WorkerServer`` thread, whose launches count here.  Every
+   answer must equal the in-memory cell's and the oracle's.
+
 3. LM training with EWAH gradient compression, ``block_sqnorms``:
 
     python -m repro_torch.launch.train --arch qwen2-0.5b --full \
@@ -75,6 +90,7 @@ from __future__ import annotations
 import functools
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -745,8 +761,9 @@ APPEND_BATCHES = 16
 APPEND_ROWS = 4096
 POOL_WORKERS = 4
 # the statements whose host interval work dominates the set's time; the
-# phase's repeat passes (warm, WAL replay) leave them out to keep the smoke
-# well inside its time limit
+# store phase's repeat passes (warm, WAL replay) and the serving phase's
+# (warm, the in-process worker) leave them out to keep the smoke well
+# inside its time limit
 HEAVY_TERMS = (".group_by", ".top_k", ".top_k_sales", ".group2_sum")
 DEVICE = "cuda"               # the phase's device; its CPU test sets "cpu"
 
@@ -1008,13 +1025,15 @@ def optimize_phase(torch, wl, lr, Dataset, d, stmts, memory_results, root):
 
 
 def store_phase(torch, ops, wl, lr, timer, synth, Dataset, col,
-                memory_results, sorted_memory):
+                memory_results, sorted_memory, keep=None):
     """The whole store-and-live phase; returns its reduce rows and the
     launches of each of its main-path runs.  The sorted store's shards are
     cut by ``sorted_memory.shard(STORE_SHARDS)`` from the in-memory sorted
     cell (its retained sorted rows, re-indexed: the 2^22-row sort runs
     once in the smoke); the unsorted store is built by ``from_rows(...,
-    shards=STORE_SHARDS)``."""
+    shards=STORE_SHARDS)``.  ``keep``, a path, receives a copy of the saved
+    sorted store's files before live ingest changes them (the serving
+    phase serves it)."""
     launches = {}
     reduce_rows = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as root:
@@ -1030,6 +1049,8 @@ def store_phase(torch, ops, wl, lr, timer, synth, Dataset, col,
             "store sorted shard 0")
         launches["pool_threads"] = pool_phase(torch, wl, lr, ds.index, stmts)
         del ds
+        if keep is not None:
+            shutil.copytree(d_sorted, keep)
         release(torch)
         launches.update({f"live_{k}": v for k, v in live_phase(
             torch, wl, lr, Dataset, col, d_sorted, rows, sales,
@@ -1052,6 +1073,395 @@ def store_phase(torch, ops, wl, lr, timer, synth, Dataset, col,
             memory_results["unsorted"], root)
     log(f"store phase launches: {json.dumps(launches)}")
     return reduce_rows, launches
+
+
+# -- serving phase: HTTP, the RPC wire, shard workers and the coordinator -----
+
+SERVE_WORKERS = 3
+SERVE_REPLICATION = 2
+SERVE_DEADLINE_S = 120.0      # per shard task: covers a cold statement
+SERVE_STARTUP_S = 180.0       # a worker's torch import and CUDA cold start
+SERVE_MAX_ROWS = 100          # row answers are compared on their first 100
+SERVE_INGEST_ROWS = 4096
+# the statement answers of a response, by the statement set's terminal
+ANSWER_KEYS = {"count": "count", "group_by": "counts", "top_k": "top",
+               "top_k_sales": "top", "sum": "value", "avg": "value",
+               "min": "value", "max": "value", "group2_sum": "values",
+               "rows100": "rows"}
+
+
+def http(base, path, payload=None):
+    """POST ``payload`` (GET when None) to the service; the decoded JSON."""
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=SERVE_DEADLINE_S) as resp:
+        return json.loads(resp.read())
+
+
+def wire_statements(stmts, groups, expr_to_json):
+    """The statement set as the service's JSON bodies: (name, body)."""
+    g1, g2 = (NAMES[c] for c in groups)
+    select = {"count": {"count": True}, "group_by": {"group_count": g1},
+              "top_k": {"top_k": {"col": g2, "k": 10}},
+              "top_k_sales": {"top_k": {"col": g1, "k": 10,
+                                        "measure": "sales"}},
+              "sum": {"sum": "sales"}, "avg": {"avg": "sales"},
+              "min": {"min": "sales"}, "max": {"max": "sales"},
+              "group2_sum": {"sum": "sales", "by": [g1, g2]}}
+    out = []
+    for name, e, _ in stmts:
+        term = name.split(".", 1)[1]
+        where = expr_to_json(e)
+        out.append((name, {"query": where} if term == "rows100"
+                    else {"select": select[term], "where": where}))
+    return out
+
+
+def to_sql(w) -> str:
+    """A wire filter as the SQL front door's WHERE text."""
+    if w["op"] == "eq":
+        return f"{w['col']} = {w['value']}"
+    if w["op"] == "in":
+        return f"{w['col']} IN ({', '.join(map(str, w['values']))})"
+    if w["op"] == "not":
+        return f"NOT ({to_sql(w['arg'])})"
+    return "(" + f" {w['op'].upper()} ".join(to_sql(a) for a in w["args"]) \
+        + ")"
+
+
+def sql_statements(wire_stmts, groups):
+    """The statements the SQL front door can say, as ``{"sql": ...}``
+    bodies (all but the row queries)."""
+    g1, g2 = (NAMES[c] for c in groups)
+    head = {"count": ("count(*)", ""),
+            "group_by": ("count(*)", f" GROUP BY {g1}"),
+            "top_k": ("count(*)", f" GROUP BY {g2} LIMIT 10"),
+            "top_k_sales": ("sum(sales)", f" GROUP BY {g1} LIMIT 10"),
+            "sum": ("sum(sales)", ""), "avg": ("avg(sales)", ""),
+            "min": ("min(sales)", ""), "max": ("max(sales)", ""),
+            "group2_sum": ("sum(sales)", f" GROUP BY {g1}, {g2}")}
+    out = []
+    for name, body in wire_stmts:
+        term = name.split(".", 1)[1]
+        if term in head:
+            fn, tail = head[term]
+            out.append((name, {"sql": f"SELECT {fn} FROM t WHERE "
+                                      f"{to_sql(body['where'])}{tail}"}))
+    return out
+
+
+def like(value, want):
+    """A JSON answer in the type of the in-memory answer ``want``; the
+    conversion must not change a value."""
+    if isinstance(want, np.ndarray):
+        return np.asarray(value, dtype=want.dtype)
+    if isinstance(want, (list, tuple)):
+        if not isinstance(value, list) or len(value) != len(want):
+            return value
+        return type(want)(like(v, w) for v, w in zip(value, want))
+    got = type(want)(value)
+    return got if got == value else value
+
+
+def statement_pass(run, bodies, want):
+    """Each body through ``run`` (a POST or a coordinator call): answers
+    in the in-memory answers' types, seconds and responses by name."""
+    results, secs, outs = {}, {}, {}
+    for name, body in bodies:
+        t0 = time.perf_counter()
+        out = run(body)
+        secs[name] = time.perf_counter() - t0
+        term = name.split(".", 1)[1]
+        value = out[ANSWER_KEYS[term]]
+        if term == "rows100":
+            value = value[:SERVE_MAX_ROWS]
+        results[name], outs[name] = like(value, want[name]), out
+    return results, secs, outs
+
+
+def counted(torch, wl, lr, fn):
+    """``fn()`` with both kernels' counts set to 0 just before it; its
+    value and the launches it made."""
+    wl.launches = 0
+    lr.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"logical_reduce": lr.launches, "word_logical": wl.launches}
+
+
+def gpu_memory():
+    """The card's memory as ``nvidia-smi`` reports it: MiB used by all
+    processes, and ``pid -> used memory`` of the compute processes it
+    lists (none where it cannot see them)."""
+    def smi(query):
+        return subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                              capture_output=True, text=True, check=True,
+                              timeout=60).stdout.strip().splitlines()
+    apps = {}
+    for line in smi("--query-compute-apps=pid,used_memory"):
+        pid, _, mem = line.partition(",")
+        if pid.strip().isdigit():
+            apps[int(pid)] = mem.strip()
+    return smi("--query-gpu=memory.used")[0], apps
+
+
+def http_phase(torch, wl, lr, Dataset, d, bodies, sqls, want):
+    """The served store over HTTP, kernel path, on the default shard pool
+    of a service on the card (threads; on the CPU, where the default is a
+    forked process pool, threads are asked for): every statement cold (first after the open), cached (a result-LRU hit), in
+    its SQL form, again after ``/admin/invalidate`` (the service's result
+    LRU is empty; the shards' own result LRUs answer) and warm (without
+    ``HEAVY_TERMS``: a fresh ``ShardedIndex`` over the same shards swapped
+    in, so every result is computed again with its operands already on
+    the card); then one batch and ``/stats``.  Returns the cold answers
+    and the launches of each pass."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import ShardedIndex
+    from repro_torch.serve.query_api import serve_in_thread
+    t0 = time.perf_counter()
+    ds = Dataset.open(str(d), mmap=True, device=DEVICE)
+    pool = {} if DEVICE == "cuda" else {"shard_processes": 0}
+    svc = ds.serve(backend="kernel", max_rows=SERVE_MAX_ROWS, **pool)
+    if not isinstance(svc._shard_pool, ThreadPoolExecutor):
+        raise AssertionError(f"http: the shard pool is "
+                             f"{type(svc._shard_pool).__name__}")
+    srv, port = serve_in_thread(svc)
+    open_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{port}"
+    post = functools.partial(http, base, "/query")
+    light = [(n, b) for n, b in bodies if not n.endswith(HEAVY_TERMS)]
+    passes, launches = {}, {}
+    try:
+        for key, chosen in (("cold", bodies), ("cached", bodies),
+                            ("sql", sqls), ("invalidated", bodies),
+                            ("warm", light)):
+            if key == "invalidated":
+                http(base, "/admin/invalidate", {})
+            if key == "warm":
+                svc.set_index(ShardedIndex(svc.index.shards,
+                                           column_names=NAMES))
+            passes[key], launches[key] = counted(
+                torch, wl, lr, lambda: statement_pass(post, chosen, want))
+            res, secs, outs = passes[key]
+            # avg, min and max reuse the cached (sum, count, min, max) of
+            # the filter's sum statement; the SQL forms share the JSON
+            # forms' entries, but for the group-by (a one-column count
+            # matrix in SQL)
+            hits = sorted(n for n, o in outs.items() if o["cached"])
+            if hits != sorted(n for n in outs if key == "cached"
+                              or n.endswith((".avg", ".min", ".max"))
+                              or (key == "sql"
+                                  and not n.endswith(".group_by"))):
+                raise AssertionError(f"http {key}: cached answers {hits}")
+            check_same(f"http {key} against the in-memory cell", res, want)
+            log(f"http {key}: launches={launches[key]} total_s="
+                f"{sum(secs.values())} " + json.dumps(secs))
+        rows = [(n, b) for n, b in bodies if n.endswith(".rows100")]
+        http(base, "/admin/invalidate", {})
+        t0 = time.perf_counter()
+        batch = http(base, "/query", {"queries": [b["query"]
+                                                  for _, b in rows]})
+        batch_s = time.perf_counter() - t0
+        for (name, _), out in zip(rows, batch["results"]):
+            if not same(like(out["rows"], want[name]), want[name]):
+                raise AssertionError(f"http batch: {name} differs")
+        stats = http(base, "/stats")
+        log(f"http batch of {len(rows)} row queries s={batch_s}; stats: "
+            f"n_rows={stats['n_rows']} n_shards={stats['n_shards']} "
+            f"cache={json.dumps(stats['cache'])} open_s={open_s} "
+            f"dense_cache_bytes={dense_cache_bytes(svc.index)} "
+            f"cuda_allocated={torch.cuda.memory_allocated()}")
+        for key in ("cold", "warm"):
+            if launches[key]["logical_reduce"] <= 0:
+                raise AssertionError(f"http {key}: the kernel pass never "
+                                     f"launched logical_reduce")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+    return passes["cold"][0], {f"http_{k}": v for k, v in launches.items()}
+
+
+def process_pool_phase(Dataset, d, bodies, want):
+    """``auto`` on a served store under a forked ``ShardProcessPool`` (the
+    default on the CPU; asked for on the card): its workers run the host
+    path; the same answers."""
+    from repro_torch.core.shard import ShardProcessPool
+    svc = Dataset.open(str(d), mmap=True, device=DEVICE).serve(
+        backend="auto", max_rows=SERVE_MAX_ROWS,
+        shard_processes=os.cpu_count() or 2)
+    try:
+        if not isinstance(svc._shard_pool, ShardProcessPool):
+            raise AssertionError(f"auto: the shard pool is "
+                                 f"{type(svc._shard_pool).__name__}")
+        t0 = time.perf_counter()
+        res, _, _ = statement_pass(
+            lambda b: svc.query(b["query"]) if "query" in b
+            else svc.statement(b), bodies, want)
+        pool_s = time.perf_counter() - t0
+        check_same("auto under the default process pool", res, want)
+        log(f"auto: ShardProcessPool({svc._shard_pool.workers}) answers "
+            f"equal the in-memory cell, total_s={pool_s}")
+    finally:
+        svc._shard_pool.shutdown(wait=True)
+        svc.close()
+
+
+def live_serve_phase(torch, Dataset, col, d, root, rows, stmts):
+    """A short live pass over HTTP on a copy of the served store:
+    ``/ingest`` of rows with their sales, one ``/delete``, and the count
+    statements against NumPy over (base + ingested) - deleted."""
+    from repro_torch.core.expr import to_wire
+    from repro_torch.serve.query_api import serve_in_thread
+    copy = Path(root) / "served_live"
+    shutil.copytree(d, copy)
+    svc = Dataset.open(str(copy), mmap=True, device=DEVICE).serve(
+        backend="kernel", shard_processes=0)
+    srv, port = serve_in_thread(svc)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        rng = np.random.default_rng(SEED + 7)
+        cards = rows.max(axis=0) + 1
+        new = np.stack([rng.integers(0, int(c), SERVE_INGEST_ROWS)
+                        for c in cards], axis=1)
+        new_sales = rng.integers(0, 1_000_000, SERVE_INGEST_ROWS)
+        t0 = time.perf_counter()
+        out = http(base, "/ingest", {"rows": new.tolist(), "measures":
+                                     {"sales": new_sales.tolist()}})
+        ingest_s = time.perf_counter() - t0
+        narrow = int(np.argmin(cards))
+        v_del = int(rng.integers(0, int(cards[narrow])))
+        t0 = time.perf_counter()
+        gone = http(base, "/delete", {"where": to_wire(
+            col(NAMES[narrow]) == v_del)})
+        delete_s = time.perf_counter() - t0
+        combined = np.concatenate([rows, new])
+        alive = combined[:, narrow] != v_del
+        if out["appended"] != SERVE_INGEST_ROWS or \
+                gone["removed"] != int((~alive).sum()):
+            raise AssertionError(f"live serve: {out} {gone}")
+        masks, _ = live_oracle(col, combined, cards, alive)
+        counts = {}
+        for name, e, _ in stmts:
+            if name.endswith(".count"):
+                counts[name] = http(base, "/query", {
+                    "select": {"count": True}, "where": to_wire(e)})["count"]
+                want = int(masks[name.split(".")[0]].sum())
+                if counts[name] != want:
+                    raise AssertionError(f"live serve: {name} "
+                                         f"{counts[name]} != NumPy {want}")
+        log(f"live serve: /ingest of {SERVE_INGEST_ROWS} rows s={ingest_s}, "
+            f"/delete of {gone['removed']} rows s={delete_s}; counts "
+            f"{counts} equal NumPy")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        svc.close()
+
+
+def coordinator_run(svc, bodies, want, label):
+    """The statements through a coordinator: exact, complete answers equal
+    to ``want``; per-statement seconds logged."""
+    res, secs, outs = statement_pass(
+        lambda b: svc.query(b["query"]) if "query" in b
+        else svc.statement(b), bodies, want)
+    bad = [n for n, o in outs.items() if not o["exact"]
+           or o["missing_shards"]]
+    if bad:
+        raise AssertionError(f"{label}: inexact answers {bad}")
+    check_same(f"{label} against the in-memory cell", res, want)
+    log(f"{label}: total_s={sum(secs.values())} " + json.dumps(secs))
+
+
+def cluster_phase(torch, wl, lr, d, root, bodies, want):
+    """Spawned workers over the served store on the one card, the
+    coordinator in this process: every statement with all workers, then
+    again after one worker is killed with SIGKILL (replicas answer:
+    failovers, no degraded statement), then the worker restarted.  Then
+    one in-process ``ShardWorker`` behind a ``WorkerServer`` thread, whose
+    launches count here.  The workers' logs go to ``root``.  Returns the
+    in-process worker's launches."""
+    from repro_torch.distributed.cluster import ClusterService, Policy
+    from repro_torch.launch.cluster import LocalCluster
+    from repro_torch.serve.worker_api import ShardWorker, WorkerServer
+    policy = Policy(deadline_s=SERVE_DEADLINE_S)
+    used_before, _ = gpu_memory()
+    t0 = time.perf_counter()
+    with LocalCluster(str(d), n_workers=SERVE_WORKERS,
+                      replication=SERVE_REPLICATION, policy=policy,
+                      backend="kernel", device=DEVICE, start_monitor=False,
+                      log_dir=str(root), startup_timeout_s=SERVE_STARTUP_S
+                      ) as cluster:
+        start_s = time.perf_counter() - t0
+        svc = cluster.service
+        used, apps = gpu_memory()
+        log(f"cluster: {SERVE_WORKERS} workers r={SERVE_REPLICATION} "
+            f"placement={cluster.placement} start_s={start_s} ready_s="
+            f"{cluster.ready_s}; card memory used before the workers "
+            f"{used_before}, after their start {used}, by worker "
+            f"{[apps.get(p.pid) for p in cluster.procs]}")
+        coordinator_run(svc, bodies, want, "cluster all workers")
+        used, apps = gpu_memory()
+        log(f"cluster: card memory used after the statements {used}, by "
+            f"worker {[apps.get(p.pid) for p in cluster.procs]}")
+        svc.invalidate_cache()
+        cluster.kill_worker(0)
+        coordinator_run(svc, bodies, want, "cluster after SIGKILL of worker 0")
+        counters = svc.stats()["counters"]
+        log(f"cluster counters after the kill: {json.dumps(counters)}")
+        if counters["failovers"] <= 0 or counters["degraded_queries"] != 0:
+            raise AssertionError(f"cluster: after the kill {counters}")
+        cluster.restart_worker(0)
+        svc.probe_all()
+        if not svc.stats()["workers"][0]["up"]:
+            raise AssertionError("cluster: restarted worker 0 is not up")
+        log(f"cluster: worker 0 restarted, ready_s={cluster.ready_s[0]}")
+    srv = WorkerServer(ShardWorker(str(d), [], backend="kernel",
+                                   device=DEVICE)).start()
+    svc = ClusterService(str(d), [srv.address], replication=1,
+                         policy=policy, backend="kernel",
+                         max_rows=SERVE_MAX_ROWS)
+    try:
+        svc.start(monitor=False)
+        light = [(n, b) for n, b in bodies if not n.endswith(HEAVY_TERMS)]
+        _, launches = counted(torch, wl, lr, lambda: coordinator_run(
+            svc, light, want, "in-process worker"))
+    finally:
+        svc.close()
+        srv.stop()
+    log(f"in-process worker: launches={launches}")
+    if launches["logical_reduce"] <= 0:
+        raise AssertionError("in-process worker never launched "
+                             "logical_reduce")
+    return launches
+
+
+def serve_phase(torch, wl, lr, Dataset, col, d, rows, sales, want):
+    """The serving phase over the saved sorted store at ``d`` (its rows and
+    sales in store order; ``want``, the in-memory cell's answers): HTTP,
+    a process pool, a live pass, the cluster.  Returns the
+    launches of its main-path runs."""
+    from repro_torch.serve.query_api import expr_to_json
+    stmts, masks, groups = statements(col, rows)
+    bodies = wire_statements(stmts, groups, expr_to_json)
+    sqls = sql_statements(bodies, groups)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as root:
+        res, launches = http_phase(torch, wl, lr, Dataset, d, bodies, sqls,
+                                   want)
+        oracle_check(res, masks, rows, sales, groups)
+        release(torch)
+        process_pool_phase(Dataset, d, bodies, want)
+        live_serve_phase(torch, Dataset, col, d, root, rows, stmts)
+        release(torch)
+        # the coordinator drives workers that run with no result cached
+        launches["worker"] = cluster_phase(torch, wl, lr, d, root, bodies,
+                                           want)
+    log(f"serve phase: total_s={time.perf_counter() - t0} launches="
+        f"{json.dumps(launches)}")
+    return launches
 
 
 # -- block_sqnorms kernel phase -------------------------------------------------
@@ -1331,11 +1741,17 @@ def main() -> int:
     profile_statements(torch, ds, stmts, "auto", "andnot.")
     del ds
     release(torch)
-    store_rows, launches_store = store_phase(torch, ops, wl, lr, timer, synth,
-                                             Dataset, col, memory_results,
-                                             sorted_ds)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_served_") as kept:
+        served = Path(kept) / "sorted"
+        store_rows, launches_store = store_phase(
+            torch, ops, wl, lr, timer, synth, Dataset, col, memory_results,
+            sorted_ds, keep=served)
+        reduce_rows += store_rows
+        launches_serve = serve_phase(
+            torch, wl, lr, Dataset, col, served, sorted_ds.table,
+            sorted_ds.index.measure("sales"), memory_results["sorted"])
     del sorted_ds
-    reduce_rows += store_rows
+    release(torch)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_root:
         model, params, report, sq_launches = training_path(
@@ -1356,7 +1772,7 @@ def main() -> int:
                                     "samples": cm.samples}))
 
     main_launches = [v for runs in (launches_sorted, launches_unsorted,
-                                    launches_store)
+                                    launches_store, launches_serve)
                      for v in runs.values()]
     reduce_row = max(reduce_rows, key=lambda r: r["bound_ms"])
     pair_row = index_rows["word_logical"]
@@ -1404,7 +1820,8 @@ def main() -> int:
             "library_ms": row["library_ms"],
         })
     log(f"launches sorted={launches_sorted} unsorted={launches_unsorted} "
-        f"store={launches_store} block_sqnorms={sq_launches} index_profile="
+        f"store={launches_store} serve={launches_serve} "
+        f"block_sqnorms={sq_launches} index_profile="
         f"{ {k: r['launches'] for k, r in index_rows.items()} }; "
         f"logical_reduce row: {reduce_row['label']}")
     log(f"total_s={time.perf_counter() - t_start}")

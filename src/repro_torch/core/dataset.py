@@ -1,9 +1,9 @@
 """``Dataset``: the one-object façade over the whole fact-table lifecycle.
 
 The paper's pipeline — order columns, sort the fact table, build k-of-N
-EWAH bitmap indexes, persist them, query them — used to be hand-wired from
-four modules (``sorting`` → ``IndexBuilder`` → ``store`` →
-``ShardedIndex``).  ``Dataset`` owns that composition end to end while
+EWAH bitmap indexes, query them — used to be hand-wired from five modules
+(``sorting`` → ``IndexBuilder`` → ``store`` → ``ShardedIndex`` →
+``QueryService``).  ``Dataset`` owns that composition end to end while
 every piece stays importable for power users:
 
     from repro_torch.core import Dataset, col
@@ -18,13 +18,14 @@ every piece stays importable for power users:
     q.group_by("day").count()                 #   np.bincount-shaped vector
     q.top_k("day", 5)                         #   [(value_rank, count), ...]
     q.rows(limit=100)                         #   row ids, when you want rows
+    svc = ds.serve()                          # pooled, caching QueryService
 
 The dataset's ``device`` is where the executor's kernel path runs and where
 its dense operands stay cached (``"cuda"`` unless the caller passes
 ``"cpu"``; there is no fallback).  The store knows nothing of devices: a
 reopened dataset runs on the ``device`` given to ``open``, each shard with
-its own operand cache.  Serving (``serve()``) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+its own operand cache.  ``serve()`` hands the dataset's device on to the
+``QueryService``.
 
 Statements, not just filters: ``query()`` returns a small immutable builder
 whose terminal methods compile to aggregation plan nodes (``PCount`` /
@@ -63,12 +64,6 @@ DEFAULT_CHUNK_ROWS = 8192
 
 AnyIndex = Union[BitmapIndex, ShardedIndex]
 Device = Union[str, torch.device]
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in repro_torch yet: it is ported with ROADMAP "
-        f"Queue 1 {item}")
 
 
 def _aligned_rows(n: int, parts: int) -> int:
@@ -710,8 +705,21 @@ class Dataset:
 
     # -- serving ------------------------------------------------------------
     def serve(self, **service_kwargs):
-        raise _not_ported("Dataset.serve",
-                          "item 11 (serve/query_api.py)")
+        """A pooled, caching ``QueryService`` over this dataset — warm
+        (mmap) when the dataset is bound to a store directory, in-memory
+        otherwise — running on the dataset's ``device`` unless the caller
+        names another.  Keyword arguments pass through to
+        ``QueryService``."""
+        from repro_torch.serve.query_api import QueryService
+        from .ingest import LiveIndex
+        service_kwargs.setdefault("device", self.device)
+        if isinstance(self.index, LiveIndex):
+            # share the live layer (and its WAL) rather than re-opening
+            return QueryService(self.index, index_dir=self.dir_path,
+                                **service_kwargs)
+        if self.dir_path is not None:
+            return QueryService.from_dir(self.dir_path, **service_kwargs)
+        return QueryService(self.index, **service_kwargs)
 
 
 def _attach_measures(index: AnyIndex,

@@ -753,9 +753,9 @@ def run_shard_task(sh: BitmapIndex, task, backend: str = "auto",
     ``tau`` threshold and a ``prunable`` flag) and ``("gvals", col, e, ids,
     measure)`` exact partials at the given candidate ids.  This is the
     single shard-side execution path shared by the fork-based
-    ``ShardProcessPool`` and, once serving is ported, the RPC worker tier,
-    so a worker computes exactly what the single-process ``ShardedIndex``
-    fan-out would.  ``device`` is where the shard's kernel path runs.
+    ``ShardProcessPool`` and the RPC worker tier
+    (``repro_torch.serve.worker_api``), so a worker computes exactly what
+    the single-process ``ShardedIndex`` fan-out would.  ``device`` is where the shard's kernel path runs.
     """
     from .executor import Executor
     from .planner import Planner, plan

@@ -300,3 +300,38 @@ def test_bitpack_reads_other_dtypes_as_nonzero(cuda_device):
                       generator=gen)
     x[::7] = 255
     assert torch.equal(t_ops.bitpack(x), t_bp.bitpack_plain(x != 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("serve_kwargs", [{}, {"backend": "kernel"}],
+                         ids=["defaults", "kernel"])
+def test_served_store_defaults_run_logical_reduce_on_the_card(
+        cuda_device, tmp_path, serve_kwargs):
+    """``Dataset.open(dir).serve()`` of a sharded store fans its shards out
+    on threads on the card (a forked process pool would run host EWAH) and
+    its statements launch the fused kernel."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import Dataset
+    rng = np.random.default_rng(3)
+    rows = rng.integers(0, 16, size=(1 << 16, 2))
+    Dataset.from_rows(rows, ["c0", "c1"], sort="none", shards=4,
+                      device="cpu").save(str(tmp_path / "store"))
+    svc = Dataset.open(str(tmp_path / "store")).serve(**serve_kwargs)
+    try:
+        assert svc.device.type == "cuda"
+        assert isinstance(svc._shard_pool, ThreadPoolExecutor)
+        where = {"op": "and", "args": [
+            {"op": "in", "col": "c0", "values": [1, 2, 3, 4, 5]},
+            {"op": "in", "col": "c1", "values": [0, 7, 9]}]}
+        mask = np.isin(rows[:, 0], [1, 2, 3, 4, 5]) & \
+            np.isin(rows[:, 1], [0, 7, 9])
+        before = t_lr.launches
+        got = svc.statement({"select": {"count": True}, "where": where})
+        assert t_lr.launches > before
+        assert got["count"] == int(mask.sum())
+        groups = svc.statement({"select": {"group_count": "c1"},
+                                "where": where})
+        assert list(groups["counts"]) == \
+            np.bincount(rows[mask, 1], minlength=16).tolist()
+    finally:
+        svc.close()

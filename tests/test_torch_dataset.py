@@ -312,12 +312,6 @@ def test_from_chunks_and_spill_builds_match_reference(data, tmp_path):
         rs.query().where(e_r).group_by("a").count().tolist()
 
 
-def test_later_slices_raise_not_implemented(built):
-    _, t = built["lex"]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        t.serve()
-
-
 def _live_statements(ds, col, backend):
     out = []
     for e in (col("a").isin([1, 2, 3, 5, 8]),
@@ -332,6 +326,26 @@ def _live_statements(ds, col, backend):
 def _mutated(col, ds, rows):
     ds.append(rows)
     return ds, ds.delete(col("d").isin([0, 2]))
+
+
+def _served(ds):
+    """Statements of every kind through ``ds.serve()`` (the port's on the
+    dataset's device): the decoded answers."""
+    svc = ds.serve(max_rows=50)
+    where = {"op": "and", "args": [
+        {"op": "in", "col": "a", "values": [1, 2, 3, 5]},
+        {"op": "not", "arg": {"op": "eq", "col": "c", "value": 1}}]}
+    try:
+        return [svc.query(where), svc.query_batch([where, where]),
+                svc.statement({"select": {"count": True}, "where": where}),
+                svc.statement({"select": {"group_count": "b"},
+                               "where": where}),
+                svc.statement({"select": {"top_k": {"col": "d", "k": 3}}}),
+                svc.sql("SELECT count(*) FROM t WHERE b BETWEEN 1 AND 4 "
+                        "GROUP BY a, d"),
+                svc.stats()]
+    finally:
+        svc.close()
 
 
 # the calls that later slices of the port made work: each on a dataset of
@@ -353,6 +367,7 @@ LATER_SLICE_CALLS = {
     "from_rows_shards": lambda D, col, ds, d: (D.from_rows(
         ds.table, NAMES, sort="none", shards=3,
         **({"device": "cpu"} if D is t_dataset.Dataset else {})), None),
+    "serve": lambda D, col, ds, d: (ds, _served(ds)),
 }
 
 
@@ -418,6 +433,10 @@ def test_package_imports_neither_jax_nor_reference():
         "import repro_torch.core.wal, repro_torch.core.ingest\n"
         "import repro_torch.core.lru, repro_torch.core.wah\n"
         "import repro_torch.core.query\n"
+        "import repro_torch.serve.query_api, repro_torch.serve.worker_api\n"
+        "import repro_torch.distributed.wire\n"
+        "import repro_torch.distributed.cluster\n"
+        "import repro_torch.launch.cluster\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
