@@ -78,6 +78,26 @@ port's main paths through the entry points a user calls:
    checkpoint every 2 steps, a failure injected at step 3) whose losses
    must match an uninterrupted run.
 
+4. LM serving, batched greedy prefill and decode (no kernel of the port
+   lies on this path; every count must stay 0):
+
+    python -m repro_torch.launch.serve --arch <arch> --full \
+        --batch 4 --prompt-len 16 --new-tokens 32 --device cuda
+
+   for qwen2-0.5b (dense), mamba2-780m (ssm), zamba2-1.2b (hybrid) and
+   whisper-small (encoder-decoder, 1,500 seeded frames) at full width and
+   depth, then arctic-480b (moe: d_model 7168, 128 experts top-2, dense
+   residual) at full width with 1 of its 35 layers, through
+   ``repro_torch.serve.loop.generate`` twice.  Weights from seed 0.  Every
+   served token must lie in [0, vocab) and the teacher-forced
+   ``serve_step`` logits over the prompt must be finite; for the four,
+   in float32 compute, they must equal ``LM.forward``'s within rtol = atol
+   = 0.15 (the reference's decode-vs-forward tolerance; the bfloat16
+   comparison is printed: at depth bfloat16 rounding takes the two paths
+   apart in the reference too); arctic's two runs must give the same
+   tokens.  One qwen2-0.5b decode step runs under the profiler
+   (device idle share, launches per token).
+
 Each kernel's launch counter is set to 0 just before a main-path run and
 read just after it.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -1679,6 +1699,232 @@ def restart_phase(torch, ckpt_root):
                              "uninterrupted run's")
 
 
+# -- LM serving ------------------------------------------------------------------
+
+LM_SERVE_ARCHS = ["qwen2-0.5b", "mamba2-780m", "zamba2-1.2b", "whisper-small"]
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 16, 32     # the reference launcher's defaults
+LM_FULL = True                # published widths; its CPU test sets False
+ARCTIC_LAYERS = 1             # of 35: two layers' float32 weights overflow 80 GB
+LM_TOL = 0.15                 # the reference's decode-vs-forward rtol and atol
+
+
+def teacher_forced(torch, model, prompts, frontend):
+    """``serve_step`` logits over the prompt, one step a token, float32."""
+    from repro_torch.models import decode as dec
+    cache = dec.init_cache(model, *prompts.shape)
+    tokens = torch.as_tensor(prompts, device=model.device)
+    if model.cfg.enc_dec:
+        cache["xk"], cache["xv"] = dec.encdec_prefill_cross(
+            model, torch.as_tensor(frontend, device=model.device))
+    steps = []
+    for i in range(prompts.shape[1]):
+        logits, cache = dec.serve_step(model, cache, tokens[:, i:i + 1])
+        steps.append(logits.float())
+    return torch.cat(steps, dim=1)
+
+
+def forward_logits(torch, model, prompts, frontend):
+    """``LM.forward``'s logits over the prompt (and frames), float32."""
+    batch = {"tokens": torch.as_tensor(prompts, device=model.device)}
+    if model.cfg.enc_dec:
+        batch["frontend"] = torch.as_tensor(frontend, device=model.device)
+    with torch.no_grad():
+        return model(batch)[0].float()
+
+
+def logits_gap(dec, full):
+    err = (dec - full).abs()
+    return {"max_abs_diff": float(err.max()),
+            "outside_tol": int((err > LM_TOL + LM_TOL * full.abs()).sum())}
+
+
+def lm_check(torch, model, out, prompts, frontend, forward: bool):
+    """The served tokens lie in [0, vocab) and start with the prompt; the
+    teacher-forced logits are finite.  With ``forward``: in float32
+    compute they equal ``LM.forward``'s within the reference's rtol = atol
+    = 0.15; in bfloat16 the same comparison is printed, with each path's
+    distance from the float32 forward, and not gated: the reference's own
+    bfloat16 decode and forward leave that tolerance at depth
+    (``tests/test_torch_moe_ssm.py``, 96 reduced mamba2 layers).  Returns
+    what was checked; raises on a failure."""
+    from repro_torch.models import layers as L
+    name, vocab = model.cfg.name, model.cfg.vocab
+    if out.shape != (LM_BATCH, LM_PROMPT + LM_NEW):
+        raise AssertionError(f"{name}: served shape {out.shape}")
+    if not ((out >= 0) & (out < vocab)).all():
+        raise AssertionError(f"{name}: a token outside [0, {vocab})")
+    if not np.array_equal(out[:, :LM_PROMPT], prompts):
+        raise AssertionError(f"{name}: the output does not start with the "
+                             f"prompt")
+    dec = teacher_forced(torch, model, prompts, frontend)
+    check = {"tokens_in_vocab": True}
+    if not forward:
+        if not bool(torch.isfinite(dec).all()):
+            raise AssertionError(f"{name}: a decode logit is not finite")
+        check["logits_finite"] = True
+        return check
+    full = forward_logits(torch, model, prompts, frontend)
+    compute = L.COMPUTE_DTYPE
+    L.COMPUTE_DTYPE = torch.float32
+    try:
+        dec32 = teacher_forced(torch, model, prompts, frontend)
+        full32 = forward_logits(torch, model, prompts, frontend)
+    finally:
+        L.COMPUTE_DTYPE = compute
+    for label, t in (("decode", dec), ("forward", full),
+                     ("float32 decode", dec32), ("float32 forward", full32)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: a {label} logit is not finite")
+    check.update(logits_finite=True, float32=logits_gap(dec32, full32),
+                 bfloat16=logits_gap(dec, full),
+                 bfloat16_from_float32={
+                     "decode": logits_gap(dec, full32)["max_abs_diff"],
+                     "forward": logits_gap(full, full32)["max_abs_diff"]})
+    if check["float32"]["outside_tol"]:
+        raise AssertionError(
+            f"{name}: {check['float32']['outside_tol']} float32 decode "
+            f"logits differ from the forward's beyond rtol=atol={LM_TOL} "
+            f"(max {check['float32']['max_abs_diff']})")
+    return check
+
+
+def profile_decode_step(torch, model, prompts):
+    """One greedy decode step of ``generate`` (``serve_step``, argmax, the
+    token's copy to the host) under the profiler, after the prompt and one
+    warm step outside it: device busy time, idle share, launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode as dec
+    from repro_torch.serve.loop import _greedy, prefill_into_cache
+    cache = dec.init_cache(model, LM_BATCH, LM_PROMPT + 2)
+    logits, cache = prefill_into_cache(
+        model, cache, torch.as_tensor(prompts, device=model.device))
+    tok = _greedy(logits)
+    logits, cache = dec.serve_step(model, cache, tok)
+    tok = _greedy(logits)
+    tok.cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = dec.serve_step(model, cache, tok)
+        _greedy(logits).cpu()
+        wall_s = time.perf_counter() - t0
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    device_s = sum(ev.self_device_time_total for ev in events) / 1e6
+    launches = sum(ev.count for ev in events)
+    top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:8]
+    out = {"arch": model.cfg.name, "wall_s": wall_s,
+           "device_busy_s": device_s, "device_idle_share": 1 - device_s / wall_s,
+           "launches_per_step": launches,
+           "launches_per_token": launches / LM_BATCH,
+           "top_device": [[ev.key[:80], ev.count, ev.self_device_time_total]
+                          for ev in top]}
+    log("profile decode step: " + json.dumps(out))
+    return out
+
+
+def kernel_counts(kernels, reset=False):
+    """Every kernel's launch count (``kernels`` are the modules ``wl``,
+    ``lr``, ``gc``, ``pc``, ``bp``), after setting them to 0 if
+    ``reset``."""
+    wl, lr, gc, pc, bp = kernels
+    if reset:
+        wl.launches = lr.launches = gc.launches = bp.launches = 0
+        pc.launches.update(popcount_total=0, popcount_rows=0)
+    return {"logical_reduce": lr.launches, "word_logical": wl.launches,
+            "block_sqnorms": gc.launches, **pc.launches,
+            "bitpack": bp.launches}
+
+
+def lm_line(report, reduced, peak, check):
+    line = {k: report[k] for k in ("arch", "params", "layers", "prefill_s",
+                                   "decode_s", "tok_s", "decode_tok_s")}
+    line.update(reduced=reduced, max_memory_allocated=peak, check=check)
+    log("lm serve: " + json.dumps(line))
+    return line
+
+
+def lm_serve_phase(torch, kernels):
+    """Greedy serving of one model of each family at full width: four
+    through ``repro_torch.launch.serve``'s entry point at full depth, and
+    arctic-480b at 1 of its 35 layers through ``serve.loop.generate``.
+    Every kernel's count is set to 0 before each model and read after it:
+    the path runs none of the port's kernels.  Returns the models'
+    lines."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import LM
+    from repro_torch.serve.loop import generate
+    cuda = DEVICE == "cuda"
+    size = "--full" if LM_FULL else "--reduced"
+    lines = []
+    for arch in LM_SERVE_ARCHS:
+        release(torch)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        kernel_counts(kernels, reset=True)
+        model, out, report = launch_serve.main([
+            "--arch", arch, size, "--device", DEVICE, "--batch",
+            str(LM_BATCH), "--prompt-len", str(LM_PROMPT), "--new-tokens",
+            str(LM_NEW)])
+        launches = kernel_counts(kernels)
+        peak = torch.cuda.max_memory_allocated() if cuda else None
+        if any(launches.values()):
+            raise AssertionError(f"{arch}: the serving path launched "
+                                 f"{launches}")
+        prompts, frontend = launch_serve.make_inputs(model.cfg, LM_BATCH,
+                                                     LM_PROMPT)
+        check = lm_check(torch, model, out, prompts, frontend, forward=True)
+        lines.append(lm_line(report, [] if LM_FULL else ["reduced config"],
+                             peak, check))
+        if arch == "qwen2-0.5b" and cuda:
+            lines[-1]["profile"] = profile_decode_step(torch, model, prompts)
+        del model
+    # arctic-480b: full width, depth cut to fit its float32 weights (14.07 B
+    # parameters at one layer, 56.3 GB) and the bfloat16 copy of one expert
+    # weight (8.9 GB) on the card; no forward check, since the forward's
+    # capacity drops tokens that the drop-free decode keeps
+    release(torch)
+    cfg = get_config("arctic-480b")
+    if not LM_FULL:
+        cfg = cfg.reduced()
+    cfg = replace(cfg, n_layers=ARCTIC_LAYERS)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernel_counts(kernels, reset=True)
+    model = LM(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    n_params = sum(p.numel() for p in model.init(gen).values())
+    prompts, frontend = launch_serve.make_inputs(cfg, LM_BATCH, LM_PROMPT)
+    runs, timings = [], {}
+    for _ in range(2):
+        runs.append(generate(model, prompts, LM_NEW,
+                             max_len=LM_PROMPT + LM_NEW + 1,
+                             frontend=frontend, timings=timings))
+    launches = kernel_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    if any(launches.values()):
+        raise AssertionError(f"arctic: the serving path launched {launches}")
+    if not np.array_equal(runs[0], runs[1]):
+        raise AssertionError("arctic: two generate calls gave different "
+                             "tokens")
+    check = lm_check(torch, model, runs[1], prompts, frontend, forward=False)
+    check["two_runs_identical"] = True
+    n = LM_BATCH * LM_NEW
+    dt = timings["prefill_s"] + timings["decode_s"]
+    report = {"arch": cfg.name, "params": n_params, "layers": cfg.n_layers,
+              **timings, "tok_s": n / dt,
+              "decode_tok_s": n / timings["decode_s"]}
+    cuts = [f"n_layers 35 -> {ARCTIC_LAYERS}"]
+    lines.append(lm_line(report, cuts + ([] if LM_FULL else
+                                         ["reduced config"]), peak, check))
+    del model
+    release(torch)
+    return lines
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1765,6 +2011,11 @@ def main() -> int:
         del model, params
         torch.cuda.empty_cache()
         restart_phase(torch, ckpt_root)
+    release(torch)
+    t0 = time.perf_counter()
+    lm_lines = lm_serve_phase(torch, (wl, lr, gc, pc, bp))
+    log(f"lm serve phase_s={time.perf_counter() - t0} models="
+        f"{[line['arch'] for line in lm_lines]}")
 
     cm = cost_model.calibrate(device="cuda")
     log("calibrate: " + json.dumps({"dense_threshold": cm.dense_threshold,

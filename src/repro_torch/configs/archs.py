@@ -1,7 +1,7 @@
 """The ten architectures at their published dimensions, one ModelConfig
 each, with the source of its dimensions beside it (the reference package's
-``repro/configs/archs.py``, copied).  The port trains the dense and vlm
-families; the others raise ``NotImplementedError`` in ``LM``.
+``repro/configs/archs.py``, copied).  ``LM`` builds, trains and serves
+every one of them.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
-"""The LM substrate's models: layers, attention and the decoder LM."""
+"""The LM substrate's models: layers, attention, MoE, Mamba-2, the
+unified LM and its single-token decode."""
 from .transformer import LM, params_from_numpy
-from . import attention, layers, moe, ssm
+from . import attention, decode, layers, moe, ssm
 
-__all__ = ["LM", "params_from_numpy", "attention", "layers", "moe", "ssm"]
+__all__ = ["LM", "params_from_numpy", "attention", "decode", "layers", "moe",
+           "ssm"]

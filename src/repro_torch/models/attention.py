@@ -1,17 +1,17 @@
-"""GQA attention, full-sequence path: bias / softcap / sliding window /
+"""GQA attention: bias / softcap / sliding window / cache decode /
 cross-attention.
 
   * grouped-query attention (n_kv_heads <= n_heads), MHA as the equal case;
   * optional QKV bias (qwen family), attention-logit softcap (gemma-2);
-  * causal, sliding-window (local) and full (cross / encoder) masks.
+  * causal, sliding-window (local) and full (cross / encoder) masks;
+  * decode path with a preallocated KV cache written in place.
 
 Shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, KV, hd).  Plain torch ops
 that mirror the reference's ``_sdpa``: float32 scores, a -1e30 mask, a
 float32 softmax, GQA by head grouping.  The reference computes this outside
 any Pallas kernel, so there is no kernel here either.  The one-device port
 leaves out the reference's sharding constraints, which are the identity on
-one device, and its bf16-score variant, which is off there.  The decode
-path with a KV cache comes with LM serving.
+one device, and its bf16-score variant, which is off there.
 """
 from __future__ import annotations
 
@@ -128,3 +128,71 @@ def cross_attention(params: Mapping[str, torch.Tensor], spec: AttnSpec,
     q, k, v = _project_qkv(params, spec, x, memory)
     out = _sdpa(q, k, v, None, spec)
     return out @ cast(params["wo"])
+
+
+# -- decode with KV cache -----------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, KV, hd)
+    v: torch.Tensor
+    length: int      # tokens already in the cache (a host int)
+
+    @classmethod
+    def zeros(cls, B: int, S_max: int, KV: int, hd: int,
+              dtype=torch.bfloat16, device=None) -> "KVCache":
+        return cls(torch.zeros((B, S_max, KV, hd), dtype=dtype, device=device),
+                   torch.zeros((B, S_max, KV, hd), dtype=dtype, device=device),
+                   0)
+
+
+def decode_attention(params: Mapping[str, torch.Tensor], spec: AttnSpec,
+                     x: torch.Tensor, cache: KVCache, *,
+                     window: Optional[int] = None):
+    """One-token decode: x (B, 1, D); returns (out, updated cache).
+
+    The new K/V row is written in place into the cache's tensors at
+    position ``cache.length``, in their dtype; attention runs over the
+    whole cache with a validity mask.  A write past ``S_max`` raises
+    ``ValueError``: the reference's ``dynamic_update_slice`` clamps the
+    start and would overwrite the last slot.
+    """
+    B, one, _ = x.shape
+    if one != 1:
+        raise ValueError(f"decode takes one token a row, got {one}")
+    S_max = cache.k.shape[1]
+    pos = int(cache.length)
+    if not 0 <= pos < S_max:
+        raise ValueError(f"the KV cache holds {S_max} positions; cannot "
+                         f"write position {pos}")
+    q, k_new, v_new = _project_qkv(params, spec, x, x)
+    if spec.use_rope:
+        p = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, p, spec.rope_theta)
+        k_new = apply_rope(k_new, p, spec.rope_theta)
+    cache.k[:, pos] = k_new[:, 0]
+    cache.v[:, pos] = v_new[:, 0]
+    kpos = torch.arange(S_max, device=x.device)
+    valid = kpos <= pos
+    if window is not None:
+        valid &= kpos > pos - window
+    mask = valid[None, None, None, None, :]
+    out = _sdpa_cached(q, cache.k, cache.v, mask, spec)
+    return _out_proj(out, params["wo"]), KVCache(cache.k, cache.v, pos + 1)
+
+
+def _sdpa_cached(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor], spec: AttnSpec) -> torch.Tensor:
+    """``_sdpa`` over cached bfloat16 K/V with the reference's dtype
+    promotion: under a float32 compute dtype the scores take float32 q
+    against the upcast keys, the probabilities are cast to the values'
+    dtype, and the output keeps it."""
+    dt = torch.promote_types(q.dtype, k.dtype)
+    return _sdpa(q.to(dt), k.to(dt), v, mask, spec)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``out @ cast(wo)``, promoting the two as the reference's einsum
+    does."""
+    w = cast(wo)
+    dt = torch.promote_types(out.dtype, w.dtype)
+    return out.to(dt) @ w.to(dt)

@@ -124,6 +124,22 @@ class GatedMLP(torch.nn.Module):
         return dict(self.named_parameters(recurse=False))
 
 
+class GeluMLP(torch.nn.Module):
+    def __init__(self, d_model: int, d_ff: int, device: torch.device):
+        super().__init__()
+        self.wi = new_param((d_model, d_ff), device)
+        self.bi = new_param((d_ff,), device)
+        self.wo = new_param((d_ff, d_model), device)
+        self.bo = new_param((d_model,), device)
+
+    def init(self, generator: torch.Generator) -> None:
+        for w in (self.wi, self.wo):
+            dense_init_(w, generator)
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_parameters(recurse=False))
+
+
 # -- losses -------------------------------------------------------------------
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

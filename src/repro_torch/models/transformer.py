@@ -1,26 +1,32 @@
-"""The decoder LM of the dense and vlm families.
+"""Unified LM covering all ten architectures' families.
 
-``LM`` builds, from a ModelConfig, dense / vlm decoders: GQA with optional
-QKV bias, softcaps, local/global alternation, parallel blocks, sandwich
-norms, LayerNorm, embedding scale, learned positions and a frontend prefix
-(vlm patch embeddings) concatenated before the text.
+One ``LM`` class builds, from a ModelConfig:
+  * dense / vlm decoders (GQA, bias, softcaps, local/global alternation,
+    parallel blocks, sandwich norms, LayerNorm, embedding scale, learned
+    positions, a frontend prefix of vlm patch embeddings);
+  * MoE decoders (every layer or every ``moe_period``-th layer, optional
+    dense-residual / shared-expert branch);
+  * attention-free SSM stacks (Mamba-2 SSD);
+  * hybrid stacks (Mamba-2 backbone + shared attention block — Zamba-2);
+  * encoder-decoder (whisper) with stub frame embeddings.
 
 The reference stacks each parameter over the blocks and scans them
 (``lax.scan``); here every block is a module of an ``nn.ModuleList``, run in
 a Python loop.  The reference's activation checkpointing is a memory
 policy: the port keeps every activation, which the slice's shapes afford.
 The sharding constraints of the reference are the identity on one device
-and are left out.
+and are left out, and so is its expert-parallel MoE (a ``shard_map`` over a
+mesh).
 
-Parameters are float32 masters named like the reference's tree
-(``blocks.<b>.layers.<i>.attn.wq`` for block b of the stacked leaf
-``blocks/layers/i/attn/wq``).  ``LM.params()`` lists them in the
-reference's leaf order, with a stacked leaf's blocks one after the other,
-so a flat vector of them matches the reference's element for element.
-``params_from_numpy`` carries a reference parameter tree across.
-
-The moe, ssm and hybrid families and the encoder-decoder raise
-``NotImplementedError``: they are not ported yet.
+Parameters are float32 masters named like the reference's tree, with a
+stacked leaf's index after the stack's name: ``blocks.<b>.layers.<i>.attn.wq``
+for block b of ``blocks/layers/i/attn/wq``, ``groups.<g>.<i>.ssm.in_proj``
+for the hybrid's (G, per)-stacked ``groups/ssm/in_proj``, and
+``rest.<r>.…``, ``enc_blocks.<l>.…``, ``dec_blocks.<l>.…``.  ``LM.params()``
+lists them in the reference's leaf order, with a stacked leaf's entries one
+after the other, so a flat vector of them matches the reference's element
+for element.  ``params_from_numpy`` carries a reference parameter tree
+across.
 """
 from __future__ import annotations
 
@@ -32,9 +38,12 @@ import torch
 from repro_torch.kernels.ops import resolve_device
 
 from . import layers as L
-from .attention import Attention, AttnSpec, attention
-from .layers import (GatedMLP, cast, cross_entropy, embed_init_, dense_init_,
-                     gated_mlp, layer_norm, new_param, rms_norm, softcap)
+from .attention import Attention, AttnSpec, attention, cross_attention
+from .layers import (GatedMLP, GeluMLP, cast, cross_entropy, embed_init_,
+                     dense_init_, gated_mlp, gelu_mlp, layer_norm, new_param,
+                     rms_norm, softcap)
+from .moe import MoE, moe_block
+from .ssm import SSM, ssm_block
 
 Params = Dict[str, torch.Tensor]
 
@@ -45,67 +54,89 @@ class Plan(NamedTuple):
     window: Optional[int] = None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in repro_torch yet: it is ported with ROADMAP "
-        f"Queue 1 item 13 (the rest of the LM substrate)")
+SSM_PLAN = Plan("ssm", "none")
+# leading stacked dimensions of each stacked subtree of the reference
+_STACKED = {"blocks": 1, "groups": 2, "rest": 1, "enc_blocks": 1,
+            "dec_blocks": 1}
+# the scales that ``_norm`` and the encoder-decoder pass to ``layer_norm``
+# when cfg.norm == "layer"
+_LAYER_NORM_SCALES = ("ln1", "ln2", "ln3", "ln_f", "ln_enc")
 
 
 class Layer(torch.nn.Module):
-    """One ``Plan("attn", "mlp", window)`` layer: norms, attention, MLP."""
+    """One layer of a plan: its norms, then a Mamba-2 block, or attention
+    and its feed-forward (MLP, MoE with an optional dense residual, or the
+    whisper GELU MLP).  ``cross`` adds the decoder's cross-attention."""
 
-    def __init__(self, cfg, spec: AttnSpec, device: torch.device):
+    def __init__(self, cfg, spec: AttnSpec, plan: Plan, device: torch.device,
+                 cross: bool = False):
         super().__init__()
         d = cfg.d_model
         self.ln1 = new_param((d,), device)
         if cfg.norm == "layer":
             self.ln1_b = new_param((d,), device)
+        if plan.kind == "ssm":
+            self.ssm = SSM(d, cfg.ssm, device)
+            return
         self.attn = Attention(d, spec, device)
         if cfg.post_norms:
             self.ln1_post = new_param((d,), device)
-        self.mlp = GatedMLP(d, cfg.d_ff, device)
         if cfg.parallel_block:
+            self.mlp = GatedMLP(d, cfg.d_ff, device)
             return
         self.ln2 = new_param((d,), device)
         if cfg.norm == "layer":
             self.ln2_b = new_param((d,), device)
+        if plan.ffn == "moe":
+            self.moe = MoE(d, cfg.moe, device)
+            if cfg.moe.dense_residual:
+                self.mlp = GatedMLP(d, cfg.d_ff, device)
+        elif cfg.norm == "layer" and cfg.enc_dec:
+            self.mlp = GeluMLP(d, cfg.d_ff, device)
+        else:
+            self.mlp = GatedMLP(d, cfg.d_ff, device)
         if cfg.post_norms:
             self.ln2_post = new_param((d,), device)
-
-    def init(self, generator: torch.Generator) -> None:
-        self.attn.init(generator)
-        self.mlp.init(generator)
+        if cross:
+            self.xattn = Attention(d, spec, device)
+            self.ln3 = new_param((d,), device)
+            self.ln3_b = new_param((d,), device)
 
 
 class Block(torch.nn.Module):
     """One period of layers: the unit the reference stacks and scans."""
 
-    def __init__(self, cfg, spec: AttnSpec, n_layers: int,
-                 device: torch.device):
+    def __init__(self, cfg, spec: AttnSpec, plans, device: torch.device):
         super().__init__()
         self.layers = torch.nn.ModuleList(
-            Layer(cfg, spec, device) for _ in range(n_layers))
+            Layer(cfg, spec, plan, device) for plan in plans)
+
+
+class SharedBlock(torch.nn.Module):
+    """The hybrid's shared attention block, applied after every group."""
+
+    def __init__(self, cfg, spec: AttnSpec, device: torch.device):
+        super().__init__()
+        d = cfg.d_model
+        self.ln1 = new_param((d,), device)
+        self.attn = Attention(d, spec, device)
+        self.ln2 = new_param((d,), device)
+        self.mlp = GatedMLP(d, cfg.d_ff, device)
 
 
 def reference_order(name: str) -> Tuple:
     """Sort key that puts parameter names in the reference's leaf order:
-    dict keys sorted, list indices in order, and the blocks of one stacked
-    leaf one after the other."""
-    parts = name.split(".")
-    if parts[0] != "blocks":
-        return tuple(parts)
-    # blocks.<b>.layers.<i>.<rest> -> (blocks, layers, i, *rest, b)
-    return ("blocks", parts[2], int(parts[3]), *parts[4:], int(parts[1]))
+    dict keys sorted, list indices in order, and the entries of one stacked
+    leaf one after the other (row-major over its stacked dimensions)."""
+    parts = [int(p) if p.isdigit() else p for p in name.split(".")]
+    n = _STACKED.get(parts[0], 0)
+    # e.g. groups.<g>.<i>.<rest> -> (groups, *rest, g, i)
+    return (parts[0], *parts[1 + n:], *parts[1:1 + n])
 
 
 class LM(torch.nn.Module):
     def __init__(self, cfg, device="cuda"):
         super().__init__()
-        if cfg.family in ("moe", "ssm", "hybrid") or cfg.moe is not None \
-                or cfg.ssm is not None:
-            raise _not_ported(f"the {cfg.family} family ({cfg.name})")
-        if cfg.enc_dec:
-            raise _not_ported(f"the encoder-decoder ({cfg.name})")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.attn_spec = AttnSpec(
@@ -118,24 +149,54 @@ class LM(torch.nn.Module):
             use_rope=not cfg.learned_pos,
         )
         self.plans = self._layer_plans()
-        dev, d = self.device, cfg.d_model
+        dev, d, spec = self.device, cfg.d_model, self.attn_spec
         self.embed = new_param((cfg.vocab, d), dev)
         self.ln_f = new_param((d,), dev)
         if cfg.norm == "layer":
             self.ln_f_b = new_param((d,), dev)
         if not cfg.tie_embeddings:
             self.unembed = new_param((d, cfg.vocab), dev)
-        self.blocks = torch.nn.ModuleList(
-            Block(cfg, self.attn_spec, self.period, dev)
-            for _ in range(self.n_blocks))
-        if cfg.learned_pos:
+        if cfg.enc_dec:
+            attn = Plan("attn")
+            self.enc_blocks = torch.nn.ModuleList(
+                Layer(cfg, spec, attn, dev) for _ in range(cfg.n_enc_layers))
+            self.dec_blocks = torch.nn.ModuleList(
+                Layer(cfg, spec, attn, dev, cross=True)
+                for _ in range(cfg.n_layers))
+            self.pos_enc = new_param((cfg.n_frontend_positions, d), dev)
             self.pos_dec = new_param((cfg.max_positions, d), dev)
+            self.ln_enc = new_param((d,), dev)
+            self.ln_enc_b = new_param((d,), dev)
+        elif cfg.family == "hybrid":
+            per, G, rest = self.hybrid_layout
+            self.groups = torch.nn.ModuleList(
+                torch.nn.ModuleList(Layer(cfg, spec, SSM_PLAN, dev)
+                                    for _ in range(per))
+                for _ in range(G))
+            self.rest = torch.nn.ModuleList(
+                Layer(cfg, spec, SSM_PLAN, dev) for _ in range(rest))
+            self.shared = SharedBlock(cfg, spec, dev)
+        else:
+            self.blocks = torch.nn.ModuleList(
+                Block(cfg, spec, self.plans, dev)
+                for _ in range(self.n_blocks))
+            if cfg.learned_pos:
+                self.pos_dec = new_param((cfg.max_positions, d), dev)
 
+    # ------------------------------------------------------------------
+    # layer plans: the repeating pattern inside one block
+    # ------------------------------------------------------------------
     def _layer_plans(self):
         cfg = self.cfg
+        if cfg.family in ("ssm", "hybrid"):
+            return [SSM_PLAN]  # the hybrid's shared attention is apart
         if cfg.local_global_period:
             return [Plan("attn", "mlp", cfg.sliding_window),
                     Plan("attn", "mlp", None)]
+        if cfg.moe is not None and cfg.moe_period > 1:
+            return [Plan("attn", "mlp", None), Plan("attn", "moe", None)]
+        if cfg.moe is not None:
+            return [Plan("attn", "moe", None)]
         return [Plan("attn", "mlp", cfg.sliding_window)]
 
     @property
@@ -149,24 +210,41 @@ class LM(torch.nn.Module):
                              f"multiple of the period {self.period}")
         return self.cfg.n_layers // self.period
 
+    @property
+    def hybrid_layout(self) -> Tuple[int, int, int]:
+        """(layers a group, groups, rest layers) of the hybrid stack."""
+        per = self.cfg.hybrid_period
+        G = self.cfg.n_layers // per
+        if G == 0:
+            raise ValueError(f"n_layers {self.cfg.n_layers} is less than "
+                             f"one hybrid group of {per}")
+        return per, G, self.cfg.n_layers - G * per
+
     # ------------------------------------------------------------------
     # parameters
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator) -> Params:
         """Draw fresh weights from ``generator`` (on the model's device)
-        into the model's parameters; returns ``params()``.  Norm scales and
-        biases start at zero, as in the reference."""
+        into the model's parameters; returns ``params()``.  Norm biases
+        and RMSNorm scales (used as 1 + scale) start at zero, as in the
+        reference.  LayerNorm scales multiply, so they start at one: the
+        reference's start at zero, and every LayerNorm of its whisper and
+        command-r then outputs zeros (all-zero logits)."""
         with torch.no_grad():
-            for p in self.parameters():
-                p.zero_()
+            for name, p in self.named_parameters():
+                layer_norm_scale = (self.cfg.norm == "layer" and
+                                    name.rsplit(".", 1)[-1]
+                                    in _LAYER_NORM_SCALES)
+                p.fill_(1.0 if layer_norm_scale else 0.0)
         embed_init_(self.embed, generator)
         if not self.cfg.tie_embeddings:
             dense_init_(self.unembed, generator)
-        for block in self.blocks:
-            for layer in block.layers:
-                layer.init(generator)
-        if self.cfg.learned_pos:
-            embed_init_(self.pos_dec, generator)
+        for m in self.modules():
+            if isinstance(m, (Attention, GatedMLP, GeluMLP, MoE, SSM)):
+                m.init(generator)
+        for name in ("pos_enc", "pos_dec"):
+            if hasattr(self, name):
+                embed_init_(getattr(self, name), generator)
         return self.params()
 
     def params(self) -> Params:
@@ -217,32 +295,78 @@ class LM(torch.nn.Module):
     # ------------------------------------------------------------------
     # layers — full-sequence path
     # ------------------------------------------------------------------
-    def _apply_layer(self, lp: Layer, plan: Plan,
-                     x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, lp: Layer, plan: Plan, h2: torch.Tensor,
+             capacity: Optional[int] = None):
+        """The feed-forward half of an attention layer on its normed input,
+        post-norm included; returns (f, MoE aux loss or 0.0)."""
         cfg = self.cfg
+        aux = 0.0
+        if plan.ffn == "moe":
+            f, aux = moe_block(lp.moe.params(), cfg.moe, h2,
+                               capacity=capacity)
+            if cfg.moe.dense_residual:
+                f = f + gated_mlp(lp.mlp.params(), h2)
+        elif cfg.enc_dec:
+            f = gelu_mlp(lp.mlp.params(), h2)
+        else:
+            f = gated_mlp(lp.mlp.params(), h2)
+        if cfg.post_norms:
+            f = rms_norm(lp.ln2_post, f)
+        return f, aux
+
+    def _apply_layer(self, lp: Layer, plan: Plan, x: torch.Tensor):
+        cfg = self.cfg
+        if plan.kind == "ssm":
+            return x + ssm_block(lp.ssm.params(), cfg.ssm,
+                                 self._norm(lp, x)), 0.0
         h = self._norm(lp, x)
         a = attention(lp.attn.params(), self.attn_spec, h,
                       window=plan.window)
         if cfg.post_norms:
             a = rms_norm(lp.ln1_post, a)
         if cfg.parallel_block:
-            return x + a + gated_mlp(lp.mlp.params(), h)
+            return x + a + gated_mlp(lp.mlp.params(), h), 0.0
         x = x + a
-        f = gated_mlp(lp.mlp.params(), self._norm(lp, x, "ln2"))
-        if cfg.post_norms:
-            f = rms_norm(lp.ln2_post, f)
-        return x + f
+        f, aux = self._ffn(lp, plan, self._norm(lp, x, "ln2"))
+        return x + f, aux
+
+    def _shared_block(self, x: torch.Tensor) -> torch.Tensor:
+        sp = self.shared
+        x = x + attention(sp.attn.params(), self.attn_spec,
+                          rms_norm(sp.ln1, x))
+        return x + gated_mlp(sp.mlp.params(), rms_norm(sp.ln2, x))
+
+    def _decoder_stack(self, x: torch.Tensor):
+        """The decoder-only stacks: blocks, or the hybrid's groups, shared
+        block and rest layers; returns (x, aux)."""
+        aux = 0.0
+        if self.cfg.family == "hybrid":
+            for group in self.groups:
+                for lp in group:
+                    x, _ = self._apply_layer(lp, SSM_PLAN, x)
+                x = self._shared_block(x)
+            for lp in self.rest:
+                x, _ = self._apply_layer(lp, SSM_PLAN, x)
+            return x, aux
+        for block in self.blocks:
+            for lp, plan in zip(block.layers, self.plans):
+                x, a = self._apply_layer(lp, plan, x)
+                aux = aux + a
+        return x, aux
 
     # ------------------------------------------------------------------
     # public: forward / loss
     # ------------------------------------------------------------------
     def forward(self, batch: Mapping[str, torch.Tensor]
-                ) -> Tuple[torch.Tensor, float]:
-        """batch: {'tokens': (B, S_text), optional 'frontend': (B, P, D)}.
+                ) -> Tuple[torch.Tensor, Any]:
+        """batch: {'tokens': (B, S_text), optional 'frontend': (B, P, D)}
+        ('frontend' is required by the encoder-decoder).
 
         Returns (logits over the *text* positions (B, S_text, V), aux);
-        aux, the MoE load-balance loss, is 0.0 for these families."""
+        aux, the MoE load-balance loss, is 0.0 for the other families."""
         cfg = self.cfg
+        if cfg.enc_dec:
+            return self._encdec_forward(batch)
         tok = self._embed_tokens(batch["tokens"])
         P_front = 0
         if cfg.n_frontend_positions and "frontend" in batch:
@@ -253,11 +377,33 @@ class LM(torch.nn.Module):
             x = tok
         if cfg.learned_pos:
             x = x + cast(self.pos_dec)[: x.shape[1]][None]
-        for block in self.blocks:
-            for lp, plan in zip(block.layers, self.plans):
-                x = self._apply_layer(lp, plan, x)
+        x, aux = self._decoder_stack(x)
         x = self._norm(self, x, "ln_f")
-        return self._logits(x[:, P_front:]), 0.0
+        return self._logits(x[:, P_front:]), aux
+
+    def _encoder(self, frames: torch.Tensor) -> torch.Tensor:
+        x = cast(frames) + cast(self.pos_enc)[: frames.shape[1]][None]
+        for lp in self.enc_blocks:
+            h = layer_norm(lp.ln1, lp.ln1_b, x)
+            # unmasked self-attention: cross-attention of h over itself
+            x = x + cross_attention(lp.attn.params(), self.attn_spec, h, h)
+            x = x + gelu_mlp(lp.mlp.params(),
+                             layer_norm(lp.ln2, lp.ln2_b, x))
+        return layer_norm(self.ln_enc, self.ln_enc_b, x)
+
+    def _encdec_forward(self, batch: Mapping[str, torch.Tensor]):
+        memory = self._encoder(batch["frontend"])
+        tok = self._embed_tokens(batch["tokens"])
+        x = tok + cast(self.pos_dec)[: tok.shape[1]][None]
+        for lp in self.dec_blocks:
+            x = x + attention(lp.attn.params(), self.attn_spec,
+                              layer_norm(lp.ln1, lp.ln1_b, x))
+            x = x + cross_attention(lp.xattn.params(), self.attn_spec,
+                                    layer_norm(lp.ln2, lp.ln2_b, x), memory)
+            x = x + gelu_mlp(lp.mlp.params(),
+                             layer_norm(lp.ln3, lp.ln3_b, x))
+        x = self._norm(self, x, "ln_f")
+        return self._logits(x), 0.0
 
     def loss(self, batch: Mapping[str, torch.Tensor],
              params: Optional[Mapping[str, torch.Tensor]] = None
@@ -279,8 +425,9 @@ class LM(torch.nn.Module):
 def params_from_numpy(cfg, tree: Mapping[str, Any],
                       device="cuda") -> Params:
     """The reference's parameter tree (nested dicts and lists of NumPy
-    arrays; leaves under ``blocks`` stacked with a leading ``n_blocks``
-    dimension) as the port's parameters, by name, in the reference's leaf
+    arrays; leaves under ``blocks``, ``rest``, ``enc_blocks`` and
+    ``dec_blocks`` stacked with one leading dimension, under ``groups``
+    with two) as the port's parameters, by name, in the reference's leaf
     order, as float32 tensors on ``device`` (``"cuda"`` by default; raises
     without CUDA).  ``cfg`` names the architecture the tree belongs to."""
     device = resolve_device(device)
@@ -299,12 +446,10 @@ def params_from_numpy(cfg, tree: Mapping[str, Any],
                 walk(prefix + (str(i),), v)
         else:
             arr = np.asarray(node, dtype=np.float32)
-            if prefix[0] == "blocks":
-                for b in range(arr.shape[0]):
-                    name = ".".join(("blocks", str(b)) + prefix[1:])
-                    out[name] = torch.tensor(arr[b], device=device)
-            else:
-                out[".".join(prefix)] = torch.tensor(arr, device=device)
+            n = _STACKED.get(prefix[0], 0)
+            for idx in np.ndindex(arr.shape[:n]):
+                name = ".".join((prefix[0], *map(str, idx)) + prefix[1:])
+                out[name] = torch.tensor(arr[idx], device=device)
 
     walk((), tree)
     return {k: out[k] for k in sorted(out, key=reference_order)}

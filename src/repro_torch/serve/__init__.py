@@ -1,3 +1,3 @@
-"""Serving layer: the bitmap-index query endpoint (``query_api``) and the
-shard worker of the scatter/gather tier (``worker_api``).  The reference's
-LM decode loop is not ported yet."""
+"""Serving layer: the bitmap-index query endpoint (``query_api``), the
+shard worker of the scatter/gather tier (``worker_api``) and the LM's
+batched greedy decode loop (``loop``)."""

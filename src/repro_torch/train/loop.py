@@ -6,6 +6,7 @@ import tempfile
 from dataclasses import dataclass, field
 from typing import Any, Dict, Mapping, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.data.pipeline import BitmapDataPipeline
@@ -80,7 +81,17 @@ def train(model: LM, cfg: TrainConfig, pipeline: BitmapDataPipeline,
 
     def data_fn(step: int) -> Dict[str, torch.Tensor]:
         b = pipeline.batch(step, cfg.batch_size, cfg.seq_len)
-        return {"tokens": torch.from_numpy(b["tokens"]).to(device)}
+        batch = {"tokens": torch.from_numpy(b["tokens"]).to(device)}
+        if model.cfg.enc_dec:
+            # the encoder needs frames; the reference's loop feeds none
+            # (its whisper cannot train there).  Stub frames from the step,
+            # so that a restart replays the same batch.
+            shape = (cfg.batch_size, model.cfg.n_frontend_positions,
+                     model.cfg.d_model)
+            frames = np.random.default_rng(step).standard_normal(
+                shape, dtype=np.float32)
+            batch["frontend"] = torch.from_numpy(frames).to(device)
+        return batch
 
     sup = TrainSupervisor(
         SupervisorConfig(ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every),

@@ -1,10 +1,12 @@
-"""train_step factory, with gradient accumulation over microbatches."""
+"""train_step / prefill_step / serve_step factories; the train step with
+gradient accumulation over microbatches."""
 from __future__ import annotations
 
 from typing import Dict, Mapping, Tuple
 
 import torch
 
+from repro_torch.models import decode as dec
 from repro_torch.models.transformer import LM
 from .optimizer import AdamW
 
@@ -51,3 +53,18 @@ def make_train_step(model: LM, opt: AdamW, n_micro: int = 1):
         params, opt_state = opt.apply(params, gacc, opt_state)
         return params, opt_state, lacc
     return train_step
+
+
+def make_prefill_step(model: LM):
+    """prefill_step(batch) -> the full forward's logits."""
+    def prefill_step(batch):
+        logits, _ = model(batch)
+        return logits
+    return prefill_step
+
+
+def make_serve_step(model: LM):
+    """serve_step(cache, tokens) -> (logits, cache): one decode step."""
+    def serve_step(cache, tokens):
+        return dec.serve_step(model, cache, tokens)
+    return serve_step

@@ -437,6 +437,8 @@ def test_package_imports_neither_jax_nor_reference():
         "import repro_torch.distributed.wire\n"
         "import repro_torch.distributed.cluster\n"
         "import repro_torch.launch.cluster\n"
+        "import repro_torch.models.decode, repro_torch.serve.loop\n"
+        "import repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

@@ -29,7 +29,11 @@ from repro_torch.models import layers as t_layers
 from repro_torch.models.transformer import LM as TLM
 from repro_torch.models.transformer import params_from_numpy
 
-LOSS_ARCHS = ["qwen2-0.5b", "gemma2-9b", "command-r-35b", "internvl2-26b"]
+LOSS_ARCHS = sorted(R_ARCHS)
+# float32 loss and gradient parity: three dense archs and one arch of each
+# other family (moe, ssm, hybrid, encoder-decoder)
+GRAD_ARCHS = ["qwen2-0.5b", "gemma2-9b", "command-r-35b", "arctic-480b",
+              "mamba2-780m", "zamba2-1.2b", "whisper-small"]
 
 
 @pytest.fixture(autouse=True)
@@ -228,11 +232,18 @@ def test_lm_loss_matches_reference_bf16(name):
     t_model.load_params(t_params)
     with torch.no_grad():
         assert float(t_model.loss(tb)) == got
-    logits, aux = t_model(tb)
-    assert logits.shape == (2, 16, t_model.cfg.vocab) and aux == 0.0
+    with torch.no_grad():
+        logits, aux = t_model(tb)
+    assert logits.shape == (2, 16, t_model.cfg.vocab)
+    if t_model.cfg.moe is None:
+        assert aux == 0.0
+    else:
+        _, r_aux = r_model.forward(r_params, rb)
+        assert float(aux) > 0.0
+        np.testing.assert_allclose(float(aux), float(r_aux), rtol=1e-2)
 
 
-@pytest.mark.parametrize("name", LOSS_ARCHS[:3])
+@pytest.mark.parametrize("name", GRAD_ARCHS)
 def test_lm_loss_and_grads_match_reference_f32(monkeypatch, name):
     monkeypatch.setattr(r_layers, "COMPUTE_DTYPE", jnp.float32)
     monkeypatch.setattr(r_transformer, "COMPUTE_DTYPE", jnp.float32)
@@ -252,13 +263,6 @@ def test_lm_loss_and_grads_match_reference_f32(monkeypatch, name):
                                    atol=1e-4 * np.abs(w).max(), err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["arctic-480b", "mamba2-780m",
-                                  "zamba2-1.2b", "whisper-small"])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TLM(T_ARCHS[name].reduced(), device="cpu")
-
-
 def test_lm_init_is_seeded_and_on_the_device():
     cfg = T_ARCHS["qwen2-0.5b"].reduced()
     m = TLM(cfg, device="cpu")
@@ -273,3 +277,22 @@ def test_lm_init_is_seeded_and_on_the_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TLM(cfg)
+
+
+@pytest.mark.parametrize("name", ["whisper-small", "command-r-35b"])
+def test_layer_norm_scales_start_at_one(name):
+    """The reference starts LayerNorm scales at zero as it does RMSNorm's
+    (which it applies as 1 + scale), so every LayerNorm of a fresh
+    whisper or command-r outputs zeros and so do the logits; the port's
+    fresh LayerNorms are the identity."""
+    r_model, r_params, _, _, batch = _setup(name)
+    rb, tb = _batches(batch)
+    r_logits, _ = r_model.forward(r_params, rb)
+    assert not np.asarray(r_logits, np.float32).any()
+    t_model = TLM(T_ARCHS[name].reduced(), device="cpu")
+    params = t_model.init(torch.Generator().manual_seed(0))
+    assert float(params["ln_f"].detach().min()) == 1.0
+    assert float(params["ln_f_b"].detach().abs().max()) == 0.0
+    with torch.no_grad():
+        logits, _ = t_model(tb)
+    assert torch.isfinite(logits).all() and float(logits.float().std()) > 0.1

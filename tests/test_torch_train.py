@@ -151,8 +151,10 @@ def test_train_step_microbatches_average_the_gradient(tiny):
 
 # -- the compressed training loop against the reference ------------------------
 
-def test_compressed_train_matches_reference(tmp_path):
-    r_cfg = R_ARCHS[ARCH].reduced()
+@pytest.mark.parametrize("arch", [ARCH, "mamba2-780m"])
+def test_compressed_train_matches_reference(tmp_path, arch):
+    # mamba2: the flat leaf order, and so the keep mask, of a non-dense tree
+    r_cfg = R_ARCHS[arch].reduced()
     corpus = RCorpus.synthetic(n_docs=64, doc_len=64, vocab=r_cfg.vocab,
                                seed=1)
     r_model = RLM(r_cfg)
@@ -163,7 +165,7 @@ def test_compressed_train_matches_reference(tmp_path):
         r_model, r_loop.TrainConfig(ckpt_dir=str(tmp_path / "r"), **tc),
         RPipe(corpus), rng=jax.random.PRNGKey(0))
 
-    t_model = TLM(T_ARCHS[ARCH].reduced(), device="cpu")
+    t_model = TLM(T_ARCHS[arch].reduced(), device="cpu")
     t_corpus = TCorpus(tokens=corpus.tokens, fact_table=corpus.fact_table,
                        cards=corpus.cards)
     before = t_kgc.launches
@@ -311,12 +313,14 @@ def test_default_ckpt_dir_is_fresh():
     assert a.ckpt_dir.startswith(tempfile.gettempdir())
 
 
-def test_launch_train_cli_on_cpu(tmp_path):
+@pytest.mark.parametrize("arch", sorted(T_ARCHS))
+def test_launch_train_cli_on_cpu(tmp_path, arch):
     from repro_torch.launch import train as launch
     model, params, report = launch.main([
-        "--device", "cpu", "--steps", "2", "--compress", "0.25",
-        "--batch-size", "2", "--seq-len", "32", "--ckpt-dir", str(tmp_path)])
-    assert model.cfg.name == "qwen2-0.5b-smoke"
+        "--arch", arch, "--device", "cpu", "--steps", "2", "--compress",
+        "0.25", "--batch-size", "2", "--seq-len", "32", "--ckpt-dir",
+        str(tmp_path)])
+    assert model.cfg.name == f"{arch}-smoke"
     assert report.steps_run == 2 and report.restarts == 0
     assert np.isfinite(report.losses).all()
     assert list(params) == list(model.params())
