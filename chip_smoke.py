@@ -98,6 +98,24 @@ port's main paths through the entry points a user calls:
    tokens.  One qwen2-0.5b decode step runs under the profiler
    (device idle share, launches per token).
 
+5. The dry-run tooling (``repro_torch.launch.{dryrun,sweep,op_analysis}``):
+   (a) ``python -m repro_torch.launch.sweep --mesh both`` on ``meta``, one
+   process an arch, all started together: 10 archs x 4 shapes x 2 meshes,
+   no ``error`` cell, ``skipped`` exactly where ``shape_applicable``
+   skips; (b) three real steps at full width, each traced on ``meta``
+   first and then run on the card under the op counter: one
+   ``serve_step`` of qwen2-0.5b and one of mamba2-780m at decode_32k
+   (batch 128, a 32,768-position cache: 51.5 GB for qwen2-0.5b), and one
+   compressed training step of the qwen2-0.5b cell above (whose
+   ``block_sqnorms`` launch the counter costs as a custom call).  The
+   counted FLOPs and bytes on the card must equal the meta trace's, the
+   counted matmul FLOPs over the device busy time (``torch.profiler``)
+   must not exceed 989 TFLOP/s x 1.05, and the meta trace's peak must lie
+   within 25% of ``max_memory_allocated``; step time (CUDA events),
+   achieved rates, roofline share and idle share are printed.  (c) The
+   compressed cell for 3 steps under remat ``full``, ``dots_nb`` and
+   ``none``: the losses agree within rtol 1e-3.
+
 Each kernel's launch counter is set to 0 just before a main-path run and
 read just after it.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -1925,6 +1943,314 @@ def lm_serve_phase(torch, kernels):
     return lines
 
 
+# -- dry-run tooling: the sweep on meta, checked against real steps --------------
+
+PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bfloat16, NVIDIA data sheet
+DRYRUN_ARCHS = None           # all ten; its CPU test takes fewer
+DRYRUN_FULL = True            # published widths; its CPU test sets False
+DRYRUN_SWEEP_S = 600          # per sweep process
+PEAK_TOL = 0.25               # predicted against measured peak
+FLOPS_TOL = 1.05              # counted matmul FLOP/s over the peak rate
+REMAT_STEPS = 3
+
+
+def dryrun_sweep(out_dir):
+    """``repro_torch.launch.sweep --mesh both`` on meta into ``out_dir``,
+    one process an arch, all started together; every cell is ``ok`` or
+    ``skipped`` exactly where ``shape_applicable`` skips it.  Prints one
+    line an (arch, shape); returns the records by file name."""
+    from repro_torch.configs import ARCHS, SHAPES, get_config, \
+        shape_applicable
+    archs = DRYRUN_ARCHS or list(ARCHS)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    procs = {a: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sweep", "--mesh", "both",
+         "--out-dir", str(out_dir), "--only-arch", a], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for a in archs}
+    failed = {}
+    try:
+        for a, p in procs.items():
+            out, _ = p.communicate(timeout=DRYRUN_SWEEP_S)
+            if p.returncode:
+                failed[a] = out[-2000:]
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    sweep_s = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"sweep processes failed: {failed}")
+    recs, errors, wrong = {}, [], []
+    for a in archs:
+        cfg = get_config(a)
+        for s, shape in SHAPES.items():
+            row = {}
+            for m in ("single", "multi"):
+                rec = json.loads((Path(out_dir) / f"{a}__{s}__{m}.json")
+                                 .read_text())
+                recs[(a, s, m)] = rec
+                if rec["status"] == "error":
+                    errors.append((a, s, m, rec["error"]))
+                want = "ok" if shape_applicable(cfg, shape)[0] else "skipped"
+                if rec["status"] != want:
+                    wrong.append((a, s, m, rec["status"], want))
+                row[m] = rec
+            if row["single"]["status"] == "ok":
+                g = row["single"]["ops"]["global"]
+                log("dryrun cell: " + json.dumps({
+                    "arch": a, "shape": s, "flops": g["flops"],
+                    "matmul_flops": g["matmul_flops"], "bytes": g["bytes"],
+                    "peak_gb": g["peak_bytes"] / 1e9,
+                    "args_gib_single": row["single"]["memory_analysis"][
+                        "argument_size_in_bytes"] / 2**30,
+                    "args_gib_multi": row["multi"]["memory_analysis"][
+                        "argument_size_in_bytes"] / 2**30}))
+    n_ok = sum(r["status"] == "ok" for r in recs.values())
+    log(f"dryrun sweep: sweep_s={sweep_s} cells={len(recs)} ok={n_ok} "
+        f"skipped={len(recs) - n_ok - len(errors)} errors={len(errors)}")
+    if errors or wrong:
+        raise AssertionError(f"sweep: errors {errors}, wrong status {wrong}")
+    return recs, sweep_s
+
+
+def dryrun_cells():
+    """The three real steps: (label, config, shape, compressed)."""
+    from dataclasses import replace
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    cells = [("qwen2-0.5b decode_32k", "qwen2-0.5b", "decode_32k", False),
+             ("mamba2-780m decode_32k", "mamba2-780m", "decode_32k", False),
+             ("qwen2-0.5b compressed train 8x128", "qwen2-0.5b", None, True)]
+    out = []
+    for label, arch, shape_name, compressed in cells:
+        cfg = replace(get_config(arch), remat_policy="full")
+        if compressed:
+            shape = ShapeConfig("train_8x128", 128, 8, "train")
+        else:
+            shape = SHAPES[shape_name]
+        if not DRYRUN_FULL:
+            cfg = cfg.reduced()
+            shape = replace(shape, seq_len=32, global_batch=2)
+        out.append((label, cfg, shape, compressed))
+    return out
+
+
+def compressed_step(torch, cfg, shape, device):
+    """The smoke's compressed training step (keep ratio 0.25) of ``cfg`` on
+    ``device``, its state and a batch: the same shapes on meta."""
+    from repro_torch.distributed import grad_compression as gcomp
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.loop import make_compressed_train_step
+    from repro_torch.train.optimizer import AdamW, AdamWConfig
+    model = LM(cfg, device=device)
+    if device == "meta":
+        params = model.params()
+        tokens = torch.empty((shape.global_batch, shape.seq_len),
+                             dtype=torch.int32, device=device)
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(SEED)
+        params = model.init(gen)
+        tokens = torch.randint(0, cfg.vocab, (shape.global_batch,
+                                              shape.seq_len), generator=gen,
+                               device=device, dtype=torch.int32)
+    opt = AdamW(AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10))
+    state = {"inner": opt.init(params), "error": gcomp.init_error(params)}
+    step = make_compressed_train_step(model, opt, 0.25)
+    return model, step, [params, state, {"tokens": tokens}]
+
+
+def step_for(torch, cfg, shape, compressed, device):
+    from repro_torch.launch import dryrun as dr
+    if compressed:
+        return compressed_step(torch, cfg, shape, device)
+    model, step, args = dr.prepare(cfg, shape, device)
+    return model, step, list(args)
+
+
+def run_step(step, args):
+    """One step; a training step's new parameters and state become the
+    next step's arguments (the decode step writes its cache in place)."""
+    out = step(*args)
+    if len(args) == 3:
+        args[0], args[1] = out[0], out[1]
+    return out
+
+
+def device_busy_s(torch, fn):
+    """(wall s, device busy s, the top device kernels) of ``fn()`` under
+    the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(ev.self_device_time_total for ev in events) / 1e6
+    top = sorted(events, key=lambda ev: -ev.self_device_time_total)[:6]
+    return wall, busy, [[ev.key[:80], ev.count, ev.self_device_time_total]
+                        for ev in top]
+
+
+def card_check(torch, label, cfg, shape, compressed):
+    """One step traced on meta, then the same step on the card under the
+    counter: the counts must be equal, the counted matmul FLOPs over the
+    device busy time at most the card's peak, and the meta trace's peak
+    within 25% of the card's.  Prints time, rates and idle share."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.op_analysis import OpCounter
+    cuda = DEVICE == "cuda"
+    _, step, args = step_for(torch, cfg, shape, compressed, "meta")
+    predicted, _ = dr.trace(step, args)
+    del step, args
+    release(torch)
+    model, step, args = step_for(torch, cfg, shape, compressed, DEVICE)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    counter = OpCounter()
+    counter.track(args)
+    with counter:
+        out = run_step(step, args)
+        del out
+    peak = None
+    if cuda:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    # the CPU runs the kernels' plain versions where meta and the card
+    # count one launch: there the comparison leaves the wrappers out
+    outside = None if cuda else "kernels."
+    got = counter.totals_outside(outside)
+    want = predicted.totals_outside(outside)
+    row = {"label": label, "arch": cfg.name, "batch": shape.global_batch,
+           "seq": shape.seq_len, **got,
+           "predicted_peak": predicted.peak_bytes,
+           "max_memory_allocated": peak}
+    if got != want:
+        raise AssertionError(f"{label}: counts on {DEVICE} {got} != {want} "
+                             f"on meta")
+    # the meta trace counts the launch that the card makes (the CPU runs
+    # the plain version)
+    sq = [(where, rec) for (op, where), rec in predicted.records.items()
+          if op == "block_sqnorms"]
+    if compressed:
+        n = sum(p.numel() for p in args[0].values())
+        n_pad = -(-n // 256) * 256
+        # the bytes that block_sqnorms_case's bound counts
+        want_bytes = n_pad * 4 + n_pad // 256 * 4
+        if len(sq) != 1 or sq[0][1][0] != 1 or sq[0][1][2] != want_bytes:
+            raise AssertionError(f"{label}: block_sqnorms records {sq}, "
+                                 f"expected one launch of {want_bytes} B")
+        row["block_sqnorms"] = {"where": sq[0][0], "bytes": sq[0][1][2]}
+    row["top_bytes"] = [[op, where, v]
+                        for v, op, where in counter.top(5, "bytes")]
+    if cuda:
+        if abs(predicted.peak_bytes - peak) > PEAK_TOL * peak:
+            raise AssertionError(f"{label}: predicted peak "
+                                 f"{predicted.peak_bytes} is not within "
+                                 f"{PEAK_TOL:.0%} of {peak}")
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run_step(step, args)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        step_s = statistics.median(times)
+        wall, busy, top = device_busy_s(torch,
+                                        lambda: run_step(step, args))
+        mm_rate = got["matmul_flops"] / busy
+        if mm_rate > PEAK_BF16_FLOPS * FLOPS_TOL:
+            raise AssertionError(f"{label}: {mm_rate:.4g} counted matmul "
+                                 f"FLOP/s over busy time is above the peak")
+        t_flops = got["matmul_flops"] / PEAK_BF16_FLOPS
+        t_bytes = got["bytes"] / HBM_BYTES_PER_S
+        row.update(step_s=step_s, step_times=times, profiled_wall_s=wall,
+                   device_busy_s=busy, device_idle_share=1 - busy / wall,
+                   matmul_flop_s=got["matmul_flops"] / step_s,
+                   bytes_s=got["bytes"] / step_s,
+                   matmul_flop_s_busy=mm_rate,
+                   bytes_s_busy=got["bytes"] / busy,
+                   bound_s=max(t_flops, t_bytes),
+                   bound_by="operations" if t_flops > t_bytes else "bytes",
+                   roofline_share=max(t_flops, t_bytes) / step_s,
+                   peak_error=predicted.peak_bytes / peak - 1,
+                   top_device=top)
+        if row["bytes_s_busy"] > HBM_BYTES_PER_S:
+            row["note"] = ("counted bytes over busy time exceed 3.35 TB/s: "
+                           "operands reread from the 50 MB L2 count again")
+    log("dryrun step: " + json.dumps(row))
+    del model, step, args, counter, predicted
+    release(torch)
+    return row
+
+
+def remat_check(torch, cfg, shape):
+    """The compressed training cell for ``REMAT_STEPS`` steps under each
+    policy from the same weights and batches: losses within rtol 1e-3;
+    peak memory and step time of each."""
+    from dataclasses import replace
+    cuda = DEVICE == "cuda"
+    rows = {}
+    for policy in ("full", "dots_nb", "none"):
+        release(torch)
+        _, step, args = compressed_step(
+            torch, replace(cfg, remat_policy=policy), shape, DEVICE)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(REMAT_STEPS):
+            t0 = time.perf_counter()
+            loss = run_step(step, args)[2]
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        rows[policy] = {"losses": losses, "step_s": times,
+                        "max_memory_allocated":
+                            torch.cuda.max_memory_allocated() if cuda
+                            else None}
+        del step, args
+    log("remat: " + json.dumps(rows))
+    ref = rows["full"]["losses"]
+    for policy, row in rows.items():
+        if not np.allclose(row["losses"], ref, rtol=1e-3, atol=0):
+            raise AssertionError(f"remat: {policy} losses {row['losses']} "
+                                 f"differ from full's {ref}")
+    release(torch)
+    return rows
+
+
+def dryrun_phase(torch, kernels):
+    """(a) the full sweep on meta, (b) three real steps at full width
+    against their meta traces, (c) the three remat policies' losses.
+    Every kernel's count is set to 0 before and read after: the phase's
+    compressed steps run ``block_sqnorms`` and nothing else runs a kernel.
+    Returns the phase's lines and its counts."""
+    t0 = time.perf_counter()
+    kernel_counts(kernels, reset=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
+        _, sweep_s = dryrun_sweep(d)
+    steps = [card_check(torch, *cell) for cell in dryrun_cells()]
+    _, cfg, shape, _ = dryrun_cells()[-1]
+    remat = remat_check(torch, cfg, shape)
+    launches = kernel_counts(kernels)
+    others = {k: v for k, v in launches.items() if k != "block_sqnorms"}
+    if DEVICE == "cuda" and not launches["block_sqnorms"] or any(
+            others.values()):
+        raise AssertionError(f"dryrun phase: launches {launches}")
+    log(f"dryrun phase: phase_s={time.perf_counter() - t0} "
+        f"sweep_s={sweep_s} launches={json.dumps(launches)}")
+    return {"sweep_s": sweep_s, "steps": steps, "remat": remat,
+            "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2016,6 +2342,7 @@ def main() -> int:
     lm_lines = lm_serve_phase(torch, (wl, lr, gc, pc, bp))
     log(f"lm serve phase_s={time.perf_counter() - t0} models="
         f"{[line['arch'] for line in lm_lines]}")
+    dryrun = dryrun_phase(torch, (wl, lr, gc, pc, bp))
 
     cm = cost_model.calibrate(device="cuda")
     log("calibrate: " + json.dumps({"dense_threshold": cm.dense_threshold,
@@ -2049,7 +2376,7 @@ def main() -> int:
         "name": "block_sqnorms", "route": "cuda",
         "source": "src/repro_torch/csrc/grad_compress.cu",
         "replaces": "src/repro/kernels/grad_compress.py:27",
-        "launches": sq_launches,
+        "launches": sq_launches + dryrun["launches"]["block_sqnorms"],
         "max_abs_err": sq_row["max_abs_err"],
         "ms": sq_row["ms"], "plain_ms": sq_row["plain_ms"],
         "bound_ms": sq_row["bound_ms"], "bound_by": "bytes",
@@ -2072,7 +2399,8 @@ def main() -> int:
         })
     log(f"launches sorted={launches_sorted} unsorted={launches_unsorted} "
         f"store={launches_store} serve={launches_serve} "
-        f"block_sqnorms={sq_launches} index_profile="
+        f"block_sqnorms={sq_launches} dryrun={dryrun['launches']} "
+        f"index_profile="
         f"{ {k: r['launches'] for k, r in index_rows.items()} }; "
         f"logical_reduce row: {reduce_row['label']}")
     log(f"total_s={time.perf_counter() - t_start}")

@@ -1,15 +1,14 @@
 """Gradient compression, checkpointing and fault tolerance on one device,
-and the bitmap-index scatter/gather serving tier.
-
-The reference's mesh sharding rules are not ported: on one device every
-sharding constraint is the identity.
+the bitmap-index scatter/gather serving tier, and the mesh sharding rules
+(``sharding``: the reference's rules as pure functions of a mesh
+descriptor; on one device every sharding constraint is the identity).
 
 Submodules import lazily — ``checkpoint``/``fault_tolerance``/
 ``grad_compression`` pull in torch, while ``wire`` is stdlib+NumPy only
 and ``cluster`` needs only the host side of the query engine."""
 
 _LAZY = ("checkpoint", "fault_tolerance", "grad_compression", "wire",
-         "cluster")
+         "cluster", "sharding")
 
 
 def __getattr__(name):

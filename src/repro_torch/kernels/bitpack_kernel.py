@@ -20,6 +20,8 @@ import functools
 
 import torch
 
+from . import _trace
+
 WORD_BITS = 32
 
 # CUDA kernel launches since import (or since a caller reset it)
@@ -84,4 +86,5 @@ def _launch(bits: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"bitpack launch failed: CUDA error {err}")
     launches += 1
+    _trace.launched("bitpack", (bits,), (out,))
     return out

@@ -10,8 +10,11 @@ TPU kernel of the reference package; unlike that kernel's 512-block tiles
 it takes any block count.
 
 ``block_sqnorms`` dispatches on the tensor's device: a CPU tensor takes the
-plain version, a CUDA tensor launches the kernel (or raises).  ``launches``
-counts kernel launches, and nothing else.
+plain version, a CUDA tensor launches the kernel (or raises), and a meta
+tensor (the dry-run's) gets the kernel's result shape and launches nothing.
+``launches`` counts kernel launches, and nothing else.  Each launch, and
+the launch a meta tensor stands for, is reported to the active cost
+counters (``kernels/_trace.py``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from . import _trace
 
 VALUES_PER_BLOCK = 256   # gradient values per compression block
 
@@ -61,8 +66,8 @@ def block_sqnorms(grad_flat: torch.Tensor,
         g = F.pad(g, (0, pad))
     if g.device.type == "cpu":
         return block_sqnorms_plain(g, values_per_block)
-    if g.device.type != "cuda":
-        raise ValueError(f"block_sqnorms runs on cpu or cuda, not "
+    if g.device.type not in ("cuda", "meta"):
+        raise ValueError(f"block_sqnorms runs on cpu, cuda or meta, not "
                          f"{g.device}")
     if values_per_block != VALUES_PER_BLOCK:
         raise ValueError(f"the CUDA kernel takes blocks of "
@@ -84,11 +89,14 @@ def _kernel_fn():
 
 def _launch(g: torch.Tensor) -> torch.Tensor:
     global launches
-    if g.data_ptr() % 16:
+    if g.device.type == "cuda" and g.data_ptr() % 16:
         raise ValueError("grad_flat must be 16-byte aligned")
     n_blocks = g.numel() // VALUES_PER_BLOCK
     out = torch.empty(n_blocks, dtype=torch.float32, device=g.device)
     if n_blocks == 0:
+        return out
+    if g.device.type == "meta":
+        _trace.launched("block_sqnorms", (g,), (out,))
         return out
     fn = _kernel_fn()
     with torch.cuda.device(g.device):
@@ -97,6 +105,7 @@ def _launch(g: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"block_sqnorms launch failed: CUDA error {err}")
     launches += 1
+    _trace.launched("block_sqnorms", (g,), (out,))
     return out
 
 

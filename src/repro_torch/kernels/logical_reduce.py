@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from . import _trace
 from .word_logical import CLEAN0, CLEAN1, DIRTY
 
 OPS = ("and", "or", "xor")
@@ -207,4 +208,5 @@ def _launch(rows: Sequence[torch.Tensor], flags: Sequence[Flags],
         raise RuntimeError(f"logical_reduce launch failed: CUDA error {err}")
     with _launches_lock:
         launches += 1
+    _trace.launched("logical_reduce", [*rows, *given], (out, out_flags))
     return out, out_flags

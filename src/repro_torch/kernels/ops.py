@@ -37,14 +37,16 @@ _ALL_ONES = np.uint32(0xFFFFFFFF)
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """``torch.device(device)``; raises if it names CUDA and CUDA is not
-    available.  The CPU is used only when the caller asks for it."""
+    available.  The CPU is used only when the caller asks for it.
+    ``"meta"`` builds shapes and dtypes with nothing allocated (the
+    dry-run's device)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but CUDA is not available; "
             f"pass device='cpu' to run the plain versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"device must be cuda, cpu or meta, got {dev}")
     return dev
 
 

@@ -20,6 +20,8 @@ import functools
 
 import torch
 
+from . import _trace
+
 # CUDA kernel launches since import (or since a caller reset them)
 launches = {"popcount_total": 0, "popcount_rows": 0}
 
@@ -100,6 +102,7 @@ def popcount_total(a: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"popcount_total launch failed: CUDA error {err}")
     launches["popcount_total"] += 1
+    _trace.launched("popcount_total", (a,), (out,))
     return out
 
 
@@ -123,6 +126,7 @@ def popcount_rows(a: torch.Tensor) -> torch.Tensor:
     if err:
         raise RuntimeError(f"popcount_rows launch failed: CUDA error {err}")
     launches["popcount_rows"] += 1
+    _trace.launched("popcount_rows", (a,), (out,))
     return out
 
 

@@ -22,6 +22,8 @@ import functools
 
 import torch
 
+from . import _trace
+
 # flag values for a tile
 DIRTY = 0
 CLEAN0 = 1
@@ -136,6 +138,7 @@ def _launch(a, b, flags_a, flags_b, op):
     if err:
         raise RuntimeError(f"word_logical launch failed: CUDA error {err}")
     launches += 1
+    _trace.launched("word_logical", (a, b, flags_a, flags_b), (out,))
     return out
 
 

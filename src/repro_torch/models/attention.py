@@ -8,10 +8,11 @@ cross-attention.
 
 Shapes: x (B, S, D); q (B, S, H, hd); kv (B, S, KV, hd).  Plain torch ops
 that mirror the reference's ``_sdpa``: float32 scores, a -1e30 mask, a
-float32 softmax, GQA by head grouping.  The reference computes this outside
-any Pallas kernel, so there is no kernel here either.  The one-device port
-leaves out the reference's sharding constraints, which are the identity on
-one device, and its bf16-score variant, which is off there.
+float32 softmax, GQA by head grouping, or the bfloat16-score variant that
+the mesh rules switch on (``--bf16-scores`` of the dry-run).  The
+reference computes this outside any Pallas kernel, so there is no kernel
+here either.  The one-device port leaves out the reference's sharding
+constraints, which are the identity on one device.
 """
 from __future__ import annotations
 
@@ -62,35 +63,55 @@ def init_attention(generator: torch.Generator, d_model: int, spec: AttnSpec,
     return attn
 
 
+def project(params: Mapping[str, torch.Tensor], spec: AttnSpec,
+            x: torch.Tensor, which: str) -> torch.Tensor:
+    """One of the q, k, v projections of x (B, S, D), as (B, S, heads,
+    hd).  Eager code computes what it is asked for: where the reference
+    takes one of ``_project_qkv``'s three and leaves XLA to drop the
+    others, the port asks for the one."""
+    B, S, _ = x.shape
+    y = x @ cast(params["w" + which])
+    if spec.qkv_bias:
+        y = y + cast(params["b" + which])
+    heads = spec.n_heads if which == "q" else spec.n_kv_heads
+    return y.reshape(B, S, heads, spec.head_dim)
+
+
 def _project_qkv(params: Mapping[str, torch.Tensor], spec: AttnSpec,
                  xq: torch.Tensor, xkv: torch.Tensor):
-    B, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
-    H, KV, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = xq @ cast(params["wq"])
-    k = xkv @ cast(params["wk"])
-    v = xkv @ cast(params["wv"])
-    if spec.qkv_bias:
-        q = q + cast(params["bq"])
-        k = k + cast(params["bk"])
-        v = v + cast(params["bv"])
-    return (q.reshape(B, Sq, H, hd), k.reshape(B, Skv, KV, hd),
-            v.reshape(B, Skv, KV, hd))
+    return (project(params, spec, xq, "q"), project(params, spec, xkv, "k"),
+            project(params, spec, xkv, "v"))
 
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           mask: Optional[torch.Tensor], spec: AttnSpec) -> torch.Tensor:
-    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd); GQA via head grouping; float32
-    scores and softmax."""
+    """q (B,Sq,H,hd), k/v (B,Skv,KV,hd); GQA via head grouping.
+
+    Scores in float32 with a float32 softmax, or, when the mesh rules ask
+    for it (``sharding.want_bf16_scores``), in the compute dtype with
+    float32 softmax sums: the max is taken out of the gradient, as the
+    reference takes it under ``stop_gradient``, and the mask is -30000,
+    which bfloat16 holds."""
+    from repro_torch.distributed import sharding as _shd
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
     q = q.reshape(B, Sq, KV, G, hd) * (hd ** -0.5)
-    logits = torch.einsum("bqkgh,bskh->bkgqs", q, k).float()
+    bf16_scores = _shd.want_bf16_scores()
+    logits = torch.einsum("bqkgh,bskh->bkgqs", q, k)
+    if not bf16_scores:
+        logits = logits.float()
     logits = softcap(logits, spec.attn_softcap)
     if mask is not None:
-        logits = torch.where(mask, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        logits = torch.where(mask, logits,
+                             -30000.0 if bf16_scores else -1e30)
+    if bf16_scores:
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        e = torch.exp(logits - m)
+        s = e.float().sum(dim=-1, keepdim=True)
+        probs = (e / s.to(e.dtype)).to(v.dtype)
+    else:
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v)
     return out.reshape(B, Sq, H * hd)
 

@@ -22,8 +22,8 @@ from typing import Any, Dict, Tuple
 import torch
 
 from . import layers as L
-from .attention import (KVCache, _out_proj, _project_qkv, _sdpa_cached,
-                        decode_attention)
+from .attention import (KVCache, _out_proj, _sdpa_cached, decode_attention,
+                        project)
 from .layers import cast, gated_mlp, gelu_mlp, layer_norm, rms_norm
 from .ssm import SSMCache, ssm_decode
 from .transformer import LM, Layer, Plan
@@ -142,7 +142,7 @@ def serve_step(model: LM, cache: Dict[str, Any], tokens: torch.Tensor):
                 KVCache(cache["k"][l], cache["v"][l], length))
             x = x + a
             h2 = layer_norm(lp.ln2, lp.ln2_b, x)
-            q, _, _ = _project_qkv(lp.xattn.params(), spec, h2, h2)
+            q = project(lp.xattn.params(), spec, h2, "q")
             ca = _sdpa_cached(q, cache["xk"][l], cache["xv"][l], None, spec)
             x = x + _out_proj(ca, lp.xattn.wo)
             x = x + gelu_mlp(lp.mlp.params(),
@@ -191,8 +191,7 @@ def encdec_prefill_cross(model: LM, frames: torch.Tensor):
     memory = model._encoder(frames)
     ks, vs = [], []
     for lp in model.dec_blocks:
-        _, k, v = _project_qkv(lp.xattn.params(), model.attn_spec, memory,
-                               memory)
-        ks.append(k.to(torch.bfloat16))
-        vs.append(v.to(torch.bfloat16))
+        p = lp.xattn.params()
+        ks.append(project(p, model.attn_spec, memory, "k").to(torch.bfloat16))
+        vs.append(project(p, model.attn_spec, memory, "v").to(torch.bfloat16))
     return torch.stack(ks), torch.stack(vs)

@@ -88,7 +88,10 @@ def moe_block(params, spec: MoESpec, x: torch.Tensor, *,
     order = torch.argsort(expert_flat, stable=True)
     es, ts, ws = expert_flat[order], token_flat[order], weight_flat[order]
 
-    counts = torch.bincount(es, minlength=E)                # (E,)
+    # a count of fixed size E (bincount's size depends on the data, and
+    # the dry-run traces this on meta tensors)
+    counts = torch.zeros(E, dtype=es.dtype, device=x.device).index_add(
+        0, es, torch.ones_like(es))                         # (E,)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(k * T, device=x.device) - starts[es]
     keep = pos < capacity

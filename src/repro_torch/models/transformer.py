@@ -12,11 +12,14 @@ One ``LM`` class builds, from a ModelConfig:
 
 The reference stacks each parameter over the blocks and scans them
 (``lax.scan``); here every block is a module of an ``nn.ModuleList``, run in
-a Python loop.  The reference's activation checkpointing is a memory
-policy: the port keeps every activation, which the slice's shapes afford.
-The sharding constraints of the reference are the identity on one device
-and are left out, and so is its expert-parallel MoE (a ``shard_map`` over a
-mesh).
+a Python loop.  Activation checkpointing follows ``cfg.remat`` and
+``cfg.remat_policy`` at the reference's four places (each block, each
+hybrid group with its shared block, each encoder and each decoder layer):
+``"full"`` recomputes the region's forward in the backward, ``"dots_nb"``
+saves the weight products (``aten.mm``/``addmm``, no batch dimension) and
+recomputes the rest, ``"none"`` keeps every activation.  The sharding
+constraints of the reference are the identity on one device and are left
+out, and so is its expert-parallel MoE (a ``shard_map`` over a mesh).
 
 Parameters are float32 masters named like the reference's tree, with a
 stacked leaf's index after the stack's name: ``blocks.<b>.layers.<i>.attn.wq``
@@ -30,10 +33,15 @@ across.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.kernels.ops import resolve_device
 
@@ -124,6 +132,39 @@ class SharedBlock(torch.nn.Module):
         self.mlp = GatedMLP(d, cfg.d_ff, device)
 
 
+def _save_weight_products(ctx, op, *args, **kwargs):
+    """The ``dots_nb`` policy: keep the outputs of the products with no
+    batch dimension (the reference's ``dots_with_no_batch_dims_saveable``);
+    recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_CONTEXTS = {
+    "full": noop_context_fn,
+    "dots_nb": functools.partial(create_selective_checkpoint_contexts,
+                                 _save_weight_products),
+}
+
+
+@contextlib.contextmanager
+def _bound(slots):
+    """Bind each (module, name, tensor) slot's tensor as that module's
+    parameter for the duration.  The backward's recomputation runs after
+    ``torch.func.functional_call`` has restored the model's own
+    parameters; rebinding the tensors the forward ran on makes it
+    recompute the same values."""
+    old = [(m, k, m._parameters[k]) for m, k, _ in slots]
+    for m, k, t in slots:
+        m._parameters[k] = t
+    try:
+        yield
+    finally:
+        for m, k, t in old:
+            m._parameters[k] = t
+
+
 def reference_order(name: str) -> Tuple:
     """Sort key that puts parameter names in the reference's leaf order:
     dict keys sorted, list indices in order, and the entries of one stacked
@@ -132,6 +173,19 @@ def reference_order(name: str) -> Tuple:
     n = _STACKED.get(parts[0], 0)
     # e.g. groups.<g>.<i>.<rest> -> (groups, *rest, g, i)
     return (parts[0], *parts[1 + n:], *parts[1:1 + n])
+
+
+def reference_path(name: str) -> Tuple[str, Tuple[int, ...]]:
+    """The reference's leaf path of a parameter name, and the index of the
+    port's leaf along that leaf's stacked dimensions:
+    ``groups.<g>.<i>.ssm.in_proj`` -> (``groups/ssm/in_proj``, (g, i)),
+    ``blocks.<b>.layers.<i>.attn.wq`` -> (``blocks/layers/<i>/attn/wq``,
+    (b,)), ``embed`` -> (``embed``, ()).  The one map between the two
+    trees' names (the sharding rules match the reference's paths)."""
+    parts = name.split(".")
+    n = _STACKED.get(parts[0], 0)
+    return ("/".join([parts[0], *parts[1 + n:]]),
+            tuple(int(p) for p in parts[1:1 + n]))
 
 
 class LM(torch.nn.Module):
@@ -336,22 +390,57 @@ class LM(torch.nn.Module):
                           rms_norm(sp.ln1, x))
         return x + gated_mlp(sp.mlp.params(), rms_norm(sp.ln2, x))
 
+    def _remat(self, fn, modules, *args):
+        """``fn(*args)``, a region whose parameters are those of
+        ``modules``, under the config's activation-checkpoint policy.
+        Without grad mode there is no backward to recompute for, and the
+        region simply runs."""
+        cfg = self.cfg
+        if not cfg.remat or cfg.remat_policy == "none" \
+                or not torch.is_grad_enabled():
+            return fn(*args)
+        if cfg.remat_policy not in _REMAT_CONTEXTS:
+            raise ValueError(f"remat_policy must be full, dots_nb or none, "
+                             f"got {cfg.remat_policy!r}")
+        slots = [(m, k, t) for mod in modules for m in mod.modules()
+                 for k, t in m._parameters.items()]
+
+        def region(*a):
+            with _bound(slots):
+                return fn(*a)
+        # no RNG runs in a region: the RNG state need not be kept
+        return checkpoint(region, *args, use_reentrant=False,
+                          preserve_rng_state=False,
+                          context_fn=_REMAT_CONTEXTS[cfg.remat_policy])
+
+    def _apply_block(self, block: Block, x: torch.Tensor):
+        aux = 0.0
+        for lp, plan in zip(block.layers, self.plans):
+            x, a = self._apply_layer(lp, plan, x)
+            aux = aux + a
+        return x, aux
+
+    def _apply_group(self, group, x: torch.Tensor) -> torch.Tensor:
+        for lp in group:
+            x, _ = self._apply_layer(lp, SSM_PLAN, x)
+        return self._shared_block(x)
+
     def _decoder_stack(self, x: torch.Tensor):
         """The decoder-only stacks: blocks, or the hybrid's groups, shared
-        block and rest layers; returns (x, aux)."""
+        block and rest layers; returns (x, aux).  Each block, and each
+        hybrid group with its shared block, is one checkpoint region; the
+        hybrid's rest layers are none, as in the reference."""
         aux = 0.0
         if self.cfg.family == "hybrid":
             for group in self.groups:
-                for lp in group:
-                    x, _ = self._apply_layer(lp, SSM_PLAN, x)
-                x = self._shared_block(x)
+                x = self._remat(self._apply_group, [group, self.shared],
+                                group, x)
             for lp in self.rest:
                 x, _ = self._apply_layer(lp, SSM_PLAN, x)
             return x, aux
         for block in self.blocks:
-            for lp, plan in zip(block.layers, self.plans):
-                x, a = self._apply_layer(lp, plan, x)
-                aux = aux + a
+            x, a = self._remat(self._apply_block, [block], block, x)
+            aux = aux + a
         return x, aux
 
     # ------------------------------------------------------------------
@@ -381,14 +470,24 @@ class LM(torch.nn.Module):
         x = self._norm(self, x, "ln_f")
         return self._logits(x[:, P_front:]), aux
 
+    def _encoder_layer(self, lp: Layer, x: torch.Tensor) -> torch.Tensor:
+        h = layer_norm(lp.ln1, lp.ln1_b, x)
+        # unmasked self-attention: cross-attention of h over itself
+        x = x + cross_attention(lp.attn.params(), self.attn_spec, h, h)
+        return x + gelu_mlp(lp.mlp.params(), layer_norm(lp.ln2, lp.ln2_b, x))
+
+    def _decoder_layer(self, lp: Layer, x: torch.Tensor,
+                       memory: torch.Tensor) -> torch.Tensor:
+        x = x + attention(lp.attn.params(), self.attn_spec,
+                          layer_norm(lp.ln1, lp.ln1_b, x))
+        x = x + cross_attention(lp.xattn.params(), self.attn_spec,
+                                layer_norm(lp.ln2, lp.ln2_b, x), memory)
+        return x + gelu_mlp(lp.mlp.params(), layer_norm(lp.ln3, lp.ln3_b, x))
+
     def _encoder(self, frames: torch.Tensor) -> torch.Tensor:
         x = cast(frames) + cast(self.pos_enc)[: frames.shape[1]][None]
         for lp in self.enc_blocks:
-            h = layer_norm(lp.ln1, lp.ln1_b, x)
-            # unmasked self-attention: cross-attention of h over itself
-            x = x + cross_attention(lp.attn.params(), self.attn_spec, h, h)
-            x = x + gelu_mlp(lp.mlp.params(),
-                             layer_norm(lp.ln2, lp.ln2_b, x))
+            x = self._remat(self._encoder_layer, [lp], lp, x)
         return layer_norm(self.ln_enc, self.ln_enc_b, x)
 
     def _encdec_forward(self, batch: Mapping[str, torch.Tensor]):
@@ -396,12 +495,7 @@ class LM(torch.nn.Module):
         tok = self._embed_tokens(batch["tokens"])
         x = tok + cast(self.pos_dec)[: tok.shape[1]][None]
         for lp in self.dec_blocks:
-            x = x + attention(lp.attn.params(), self.attn_spec,
-                              layer_norm(lp.ln1, lp.ln1_b, x))
-            x = x + cross_attention(lp.xattn.params(), self.attn_spec,
-                                    layer_norm(lp.ln2, lp.ln2_b, x), memory)
-            x = x + gelu_mlp(lp.mlp.params(),
-                             layer_norm(lp.ln3, lp.ln3_b, x))
+            x = self._remat(self._decoder_layer, [lp], lp, x, memory)
         x = self._norm(self, x, "ln_f")
         return self._logits(x), 0.0
 

@@ -56,7 +56,9 @@ def make_train_step(model: LM, opt: AdamW, n_micro: int = 1):
 
 
 def make_prefill_step(model: LM):
-    """prefill_step(batch) -> the full forward's logits."""
+    """prefill_step(batch) -> the full forward's logits, without grad: an
+    inference step keeps no activation for a backward."""
+    @torch.no_grad()
     def prefill_step(batch):
         logits, _ = model(batch)
         return logits
