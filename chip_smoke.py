@@ -76,7 +76,8 @@ port's main paths through the entry points a user calls:
    the keep mask from the kernel's norms against the plain norms' on one
    full-width gradient, and a restart on the card (reduced config,
    checkpoint every 2 steps, a failure injected at step 3) whose losses
-   must match an uninterrupted run.
+   must match an uninterrupted run and whose checkpoints must be in the
+   reference's layout (its stacked leaf paths).
 
 4. LM serving, batched greedy prefill and decode (no kernel of the port
    lies on this path; every count must stay 0):
@@ -116,6 +117,16 @@ port's main paths through the entry points a user calls:
    compressed cell for 3 steps under remat ``full``, ``dots_nb`` and
    ``none``: the losses agree within rtol 1e-3.
 
+6. The expert-parallel MoE, ``repro_torch.models.moe.moe_block_ep``: one
+   spawned rank a card, every card up to 4, over NCCL on a (1, n) mesh,
+   against ``moe_block`` at arctic-480b's MoE width (128 experts, top-2,
+   d_model 7,168, d_ff 4,864; 53.5 GB of float32 weights on each card;
+   4 x 512 tokens; a capacity factor at which neither path drops a
+   token): bfloat16 rel max error under 2e-2, the aux loss within rtol
+   1e-6; then forward + backward at 32 experts (the float32 gradients of
+   128 would not fit beside the weights), ``wi``'s gradient finite and
+   non-zero.  Both are timed; the peak memory is printed.
+
 Each kernel's launch counter is set to 0 just before a main-path run and
 read just after it.  Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``.
@@ -154,6 +165,14 @@ QWEN2_PARAMS = 494_032_768    # qwen2-0.5b's parameter count: its flat gradient
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def card_name_and_limit() -> str:
+    """The cards' names and power limits, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
 
 
 def release(torch):
@@ -1680,10 +1699,27 @@ def mask_phase(torch, gc, model, params):
                              f"differ away from the threshold")
 
 
+def checkpoint_layout(ckpt_dir, n_blocks: int) -> int:
+    """The latest checkpoint under ``ckpt_dir`` is in the reference's
+    layout: no dotted key, the attention's ``wq`` of every block stacked
+    under ``params/blocks/layers/0/attn/wq`` and its AdamW moment beside
+    it.  Returns the manifest's leaf count."""
+    d = max(Path(ckpt_dir).glob("step_*"))
+    leaves = json.loads((d / "manifest.json").read_text())["leaves"]
+    wq = leaves.get("params/blocks/layers/0/attn/wq")
+    dotted = [k for k in leaves if "." in k]
+    if (dotted or wq is None or wq["shape"][0] != n_blocks
+            or "opt/inner/m/blocks/layers/0/attn/wq" not in leaves):
+        raise AssertionError(f"{d}: not the reference's layout "
+                             f"({sorted(leaves)[:4]} ...)")
+    return len(leaves)
+
+
 def restart_phase(torch, ckpt_root):
     """Reduced qwen2-0.5b on the card: a failure injected at step 3 and a
     restore from the step-2 checkpoint replay the uninterrupted run's
-    losses (rtol 1e-3: the embedding backward sums with atomics)."""
+    losses (rtol 1e-3: the embedding backward sums with atomics).  Both
+    runs' checkpoints are in the reference's layout."""
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import BitmapDataPipeline, Corpus
     from repro_torch.models.transformer import LM
@@ -1706,9 +1742,13 @@ def restart_phase(torch, ckpt_root):
                                device="cuda")
     ref, rep = runs["uninterrupted"], runs["restarted"]
     want = ref.losses[:3] + ref.losses[2:]
+    n_blocks = sum(name.endswith(".layers.0.attn.wq") for name in start)
+    leaves = {label: checkpoint_layout(Path(ckpt_root) / label, n_blocks)
+              for label in runs}
     log("restart: " + json.dumps({"uninterrupted": ref.losses,
                                   "restarted": rep.losses,
-                                  "restarts": rep.restarts}))
+                                  "restarts": rep.restarts,
+                                  "manifest_leaves": leaves}))
     if rep.restarts != 1 or ref.restarts != 0:
         raise AssertionError(f"restart: restarts {ref.restarts}, "
                              f"{rep.restarts}; expected 0, 1")
@@ -2251,6 +2291,201 @@ def dryrun_phase(torch, kernels):
             "launches": launches}
 
 
+# -- expert-parallel MoE over every card, up to 4 --------------------------------
+
+EP_MAX_RANKS = 4
+EP_CPU_RANKS = 2              # gloo ranks of its CPU test
+EP_FULL = True                # arctic-480b's widths; its CPU test sets False
+EP_BATCH, EP_SEQ = 4, 512
+EP_BWD_EXPERTS = 32           # the experts one of 4 cards holds in 1 x 4
+EP_TOL = 2e-2                 # rel max error in bfloat16 (test_ep_dispatch)
+EP_AUX_RTOL = 1e-6
+EP_TIMEOUT_S = 600
+
+
+def ep_drop_free_cf(topi, n_experts: int, ranks: int) -> float:
+    """A capacity factor at which neither ``moe_block`` nor
+    ``moe_block_ep`` on a (1, ranks) mesh, the sequence split over the
+    ranks, drops a slot of this routing (``topi``: (B, S, k) expert ids,
+    host), with one slot to spare."""
+    B, S, k = topi.shape
+    T = B * S
+    per_expert = np.bincount(topi.reshape(-1), minlength=n_experts).max()
+    dest = topi.reshape(B, ranks, S // ranks * k) // (n_experts // ranks)
+    per_dest = max(np.bincount(dest[:, r].reshape(-1), minlength=ranks)
+                   .max() for r in range(ranks))
+    cf = max((per_expert + 1) * n_experts / (k * T),
+             (per_dest + 1) * ranks / (k * (T // ranks)))
+    return float(np.ceil(cf * 64) / 64)
+
+
+def ep_rank(rank, n, store, out_path, device, full):
+    """One rank of the EP phase (spawned): ``moe_block_ep`` over a (1, n)
+    mesh against ``moe_block``, forward at arctic-480b's MoE width,
+    forward + backward at ``EP_BWD_EXPERTS`` experts."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import bitpack_kernel as bp
+    from repro_torch.kernels import grad_compress as gc_
+    from repro_torch.kernels import logical_reduce as lr
+    from repro_torch.kernels import popcount as pc
+    from repro_torch.kernels import word_logical as wl
+    from repro_torch.launch.mesh import Mesh, process_mesh
+    from repro_torch.models.moe import (MoE, MoESpec, moe_block,
+                                        moe_block_ep_replicated, route)
+    cuda = device == "cuda"
+    if not cuda:
+        torch.set_num_threads(1)
+    pm = process_mesh(Mesh(("data", "model"), (1, n)), device,
+                      init_method=f"file://{store}", rank=rank)
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
+        else torch.device("cpu")
+    timer = Timer(torch) if cuda else None
+    cfg = get_config("arctic-480b")
+    if not full:
+        cfg = cfg.reduced()
+    D, FF, E, k = cfg.d_model, cfg.moe.d_ff, cfg.moe.n_experts, \
+        cfg.moe.top_k
+    kernels = (wl, lr, gc_, pc, bp)
+    kernel_counts(kernels, reset=True)
+
+    def weights(n_experts):
+        spec = MoESpec(n_experts, k, FF)
+        moe = MoE(D, spec, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        moe.init(gen)
+        x = torch.randn((EP_BATCH, EP_SEQ, D), generator=gen, device=dev)
+        return moe.params(), x.to(torch.bfloat16)
+
+    # forward at E experts: moe_block_ep on every rank, moe_block on rank 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    params, x = weights(E)
+    with torch.no_grad():
+        _, topi, _ = route(params, MoESpec(E, k, FF), x.reshape(-1, D))
+        cf = ep_drop_free_cf(topi.reshape(EP_BATCH, EP_SEQ, k).cpu()
+                             .numpy(), E, n)
+        spec = MoESpec(E, k, FF, capacity_factor=cf)
+        y_ep, aux_ep = moe_block_ep_replicated(params, spec, x, pm)
+        line = {"world_size": n, "experts": E, "top_k": k, "d_model": D,
+                "d_ff": FF, "tokens": EP_BATCH * EP_SEQ,
+                "capacity_factor": cf,
+                "weights_gb": sum(p.numel() * 4 for p in params.values())
+                / 1e9, "aux_ep": float(aux_ep)}
+        if rank == 0:
+            y_ref, aux_ref = moe_block(params, spec, x)
+            if n > 1:       # the mean of the blocks' aux, as pmean takes it
+                aux_ref = sum(moe_block(params, spec, xb)[1] for xb in
+                              x.chunk(n, dim=1)) / n
+            line.update(
+                rel_err=float((y_ep.float() - y_ref.float()).abs().max()
+                              / y_ref.float().abs().max()),
+                aux_ref=float(aux_ref), finite=bool(torch.isfinite(y_ep)
+                                                    .all()))
+        del y_ep
+        if cuda:
+            line["fwd_ms"] = timer.ms(
+                lambda: moe_block_ep_replicated(params, spec, x, pm))
+            if rank == 0:
+                del y_ref
+                line["plain_fwd_ms"] = timer.ms(
+                    lambda: moe_block(params, spec, x))
+    line["fwd_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 \
+        if cuda else None
+    del params, x
+    if cuda:
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+
+    # forward + backward at EP_BWD_EXPERTS experts
+    E_b = min(EP_BWD_EXPERTS, E)
+    params, x = weights(E_b)
+    for p in params.values():
+        p.requires_grad_(True)
+    with torch.no_grad():
+        _, topi, _ = route(params, MoESpec(E_b, k, FF), x.reshape(-1, D))
+    spec_b = MoESpec(E_b, k, FF, capacity_factor=ep_drop_free_cf(
+        topi.reshape(EP_BATCH, EP_SEQ, k).cpu().numpy(), E_b, n))
+
+    def fwd_bwd():
+        for p in params.values():
+            p.grad = None
+        y, aux = moe_block_ep_replicated(params, spec_b, x, pm)
+        (y.float().sum() + aux).backward()
+    fwd_bwd()
+    g = params["wi"].grad
+    line.update(bwd_experts=E_b,
+                wi_grad_norm=float(g.float().norm()),
+                wi_grad_finite=bool(torch.isfinite(g).all()))
+    if cuda:
+        line["fwd_bwd_ms"] = timer.ms(fwd_bwd)
+        line["bwd_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    line["launches"] = kernel_counts(kernels)
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(line))
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def ep_phase(torch):
+    """``moe_block_ep`` on one rank a card (every card up to 4; on the CPU,
+    ``EP_CPU_RANKS`` gloo ranks), spawned over a (1, n) mesh, against
+    ``moe_block`` on rank 0 at arctic-480b's MoE width (E 128, top-2, D
+    7,168, d_ff 4,864; 53.5 GB of float32 weights on each card; 4 x 512
+    tokens; a capacity factor at which neither path drops a token):
+    bfloat16 rel max error under ``EP_TOL``, the aux loss within
+    ``EP_AUX_RTOL``.  Then forward + backward at ``EP_BWD_EXPERTS``
+    experts (the one cut: the float32 gradients at 128 would add 53.5 GB):
+    ``wi``'s gradient finite and non-zero.  No kernel of the port lies on
+    the path.  Returns the phase's line."""
+    import torch.multiprocessing as mp
+    cuda = DEVICE == "cuda"
+    n = min(torch.cuda.device_count(), EP_MAX_RANKS) if cuda \
+        else EP_CPU_RANKS
+    log(f"ep: {n} rank(s), one a card" if cuda else f"ep: {n} gloo ranks")
+    if cuda:
+        release(torch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ep_") as d:
+        out = Path(d) / "rank0.json"
+        ctx = mp.start_processes(
+            ep_rank, args=(n, str(Path(d) / "store"), str(out), DEVICE,
+                           EP_FULL),
+            nprocs=n, join=False, start_method="spawn")
+        deadline = time.monotonic() + EP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"ep: ranks still running after "
+                                       f"{EP_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=30)
+        line = json.loads(out.read_text())
+    line["phase_s"] = time.perf_counter() - t0
+    if cuda:
+        line["card"] = card_name_and_limit()
+    log("ep: " + json.dumps(line))
+    if not line["finite"] or line["rel_err"] >= EP_TOL:
+        raise AssertionError(f"ep: moe_block_ep against moe_block, rel "
+                             f"{line['rel_err']} (gate {EP_TOL})")
+    if abs(line["aux_ep"] - line["aux_ref"]) > EP_AUX_RTOL * abs(
+            line["aux_ref"]):
+        raise AssertionError(f"ep: aux {line['aux_ep']} against "
+                             f"{line['aux_ref']}")
+    if not line["wi_grad_finite"] or line["wi_grad_norm"] <= 0:
+        raise AssertionError(f"ep: wi's gradient, norm "
+                             f"{line['wi_grad_norm']}")
+    if any(line["launches"].values()):
+        raise AssertionError(f"ep: the path launched {line['launches']}")
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2272,11 +2507,7 @@ def main() -> int:
     from repro_torch.kernels import word_logical as wl
 
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    log(smi)
+    log(card_name_and_limit())
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -2343,6 +2574,7 @@ def main() -> int:
     log(f"lm serve phase_s={time.perf_counter() - t0} models="
         f"{[line['arch'] for line in lm_lines]}")
     dryrun = dryrun_phase(torch, (wl, lr, gc, pc, bp))
+    ep_phase(torch)
 
     cm = cost_model.calibrate(device="cuda")
     log("calibrate: " + json.dumps({"dense_threshold": cm.dense_threshold,

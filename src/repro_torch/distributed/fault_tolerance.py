@@ -9,8 +9,11 @@
     slow host's shard (here the hook records the event and the decision).
 
 A step's time is taken after ``float(loss)``, which waits for the device,
-so ``step_times`` are whole-step times on a CUDA device.  The reference's
-elastic re-sharding on restore is not ported (one device).
+so ``step_times`` are whole-step times on a CUDA device.  Checkpoints are
+in the reference's layout (``checkpoint.py``), so a supervisor of either
+package resumes from the other's.  The reference's elastic re-sharding on
+restore is not ported (the state is restored whole onto each leaf's
+device).
 
 Failure injection for tests/examples: ``inject_failure_at`` raises inside
 the loop at a chosen step, exactly once.

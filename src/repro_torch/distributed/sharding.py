@@ -17,7 +17,9 @@ them, and a port leaf takes the reference leaf's spec without its stacked
 axes, which the reference leaves unsharded.
 
 ``use_mesh_rules`` installs the mesh, the variant and two switches that
-model code reads (``want_bf16_scores`` in attention).  The state is
+model code reads (``want_bf16_scores`` in attention).  A process-group mesh
+(``launch.mesh.process_mesh``) installed under ``opt_ep`` sends the
+model's MoE layers to the expert-parallel ``moe_block_ep``.  The state is
 process-wide, not thread-local as the reference's: activation
 checkpointing recomputes the forward on the autograd engine's device
 thread, which must read the switches the forward read.  ``constrain``,

@@ -210,8 +210,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, args,
         seconds={"build": t_build, "trace": t_trace},
     )
     if variant == "opt_ep" and cfg.moe is not None:
-        rec["note"] = ("opt_ep traces moe_block: the expert-parallel "
-                       "moe_block_ep is not ported (ROADMAP Queue 1 item 16)")
+        rec["note"] = ("opt_ep traces moe_block: a one-card trace on meta "
+                       "has no process group, so it runs no collective and "
+                       "the expert-parallel moe_block_ep is not traced")
     print(f"[dryrun] {arch} {shape_name} {mesh_kind}: "
           f"flops/dev={ops['flops']:.3e} bytes/dev={ops['bytes']:.3e} "
           f"link_bytes/dev={rec['link_bytes']:.3e} "

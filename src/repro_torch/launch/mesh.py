@@ -11,14 +11,23 @@ JAX.  Torch cannot make 512 devices, and the port needs none: the sharding
 rules (``distributed/sharding.py``) read a mesh's ``shape`` and
 ``axis_names`` only, so a production mesh here is the descriptor alone.
 ``make_host_mesh`` gives the same descriptor over real devices.
+
+``process_mesh`` turns a descriptor into a ``ProcessMesh``: one process a
+device, with ``torch.distributed`` groups over its axes (through
+``init_device_mesh``), over which the expert-parallel MoE
+(``models.moe.moe_block_ep``) runs its collectives.  Installed with
+``sharding.use_mesh_rules(mesh, "opt_ep")``, it sends the model's MoE
+layers down that path.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclass(frozen=True)
@@ -61,3 +70,74 @@ def make_host_mesh(data: int = 1, model: int = 1,
         raise RuntimeError(f"need {n} CUDA devices, have {have}")
     return Mesh(("data", "model"), (data, model),
                 tuple(f"cuda:{i}" for i in range(n)))
+
+
+@dataclass(frozen=True)
+class ProcessMesh(Mesh):
+    """A mesh whose devices each run one process of a ``torch.distributed``
+    job: ``device_mesh`` is the torch ``DeviceMesh`` over the same axes,
+    ranks laid row-major as the devices are."""
+    device_mesh: Any = None
+
+    def coordinate(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """Axis name -> this rank's (or ``rank``'s) index along it."""
+        rank = dist.get_rank() if rank is None else rank
+        idx = {}
+        for name, size in reversed(list(zip(self.axis_names,
+                                            self.axis_sizes))):
+            rank, idx[name] = divmod(rank, size)
+        return {a: idx[a] for a in self.axis_names}
+
+    def group(self, axes: Sequence[str]):
+        """The process group of the ranks that share this rank's index on
+        every axis but ``axes``: one axis's group from the device mesh,
+        several axes' as the device mesh flattened over them, all axes'
+        the whole job."""
+        axes = tuple(axes)
+        if set(axes) == set(self.axis_names):
+            return dist.group.WORLD
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        return self.device_mesh[axes]._flatten().get_group()
+
+
+def process_mesh(mesh: Mesh, device: str = "cuda", *,
+                 init_method: Optional[str] = None,
+                 rank: Optional[int] = None) -> ProcessMesh:
+    """Process groups over ``mesh``, one rank a device: ``nccl`` over the
+    cards for ``device="cuda"`` (the default; rank r takes card r modulo
+    the host's count, and raises without CUDA), ``gloo`` over CPU
+    processes for ``device="cpu"``.  Starts the job's default group from
+    ``init_method`` and ``rank`` (the world size is ``mesh.size``; without
+    them, from the environment as ``init_process_group`` reads it) unless
+    one is up already.  Every rank calls it with the same mesh."""
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass device='cpu' "
+                               "for a gloo mesh")
+        backend = "nccl"
+    elif device == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"device must be 'cuda' or 'cpu', not {device!r}")
+    if not dist.is_initialized():
+        card = None
+        if device == "cuda":    # this rank's card, bound to its group
+            r = int(os.environ.get("RANK", 0)) if rank is None else rank
+            card = torch.device("cuda", r % torch.cuda.device_count())
+            torch.cuda.set_device(card)
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
+                                world_size=mesh.size, device_id=card)
+    if dist.get_world_size() != mesh.size:
+        raise ValueError(f"a {mesh.size}-device mesh in a job of "
+                         f"{dist.get_world_size()} ranks")
+    if device == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh(device, tuple(mesh.axis_sizes),
+                          mesh_dim_names=tuple(mesh.axis_names))
+    devices = tuple(f"cuda:{r % torch.cuda.device_count()}"
+                    if device == "cuda" else "cpu"
+                    for r in range(mesh.size))
+    return ProcessMesh(tuple(mesh.axis_names), tuple(mesh.axis_sizes),
+                       devices, dm)

@@ -19,7 +19,10 @@ hybrid group with its shared block, each encoder and each decoder layer):
 saves the weight products (``aten.mm``/``addmm``, no batch dimension) and
 recomputes the rest, ``"none"`` keeps every activation.  The sharding
 constraints of the reference are the identity on one device and are left
-out, and so is its expert-parallel MoE (a ``shard_map`` over a mesh).
+out.  Its expert-parallel MoE runs where the reference's does: under the
+``opt_ep`` variant with a process-group mesh installed
+(``sharding.use_mesh_rules``), each MoE layer calls
+``moe.moe_block_ep_replicated``.
 
 Parameters are float32 masters named like the reference's tree, with a
 stacked leaf's index after the stack's name: ``blocks.<b>.layers.<i>.attn.wq``
@@ -50,7 +53,7 @@ from .attention import Attention, AttnSpec, attention, cross_attention
 from .layers import (GatedMLP, GeluMLP, cast, cross_entropy, embed_init_,
                      dense_init_, gated_mlp, gelu_mlp, layer_norm, new_param,
                      rms_norm, softcap)
-from .moe import MoE, moe_block
+from .moe import MoE, moe_block, moe_block_ep_replicated
 from .ssm import SSM, ssm_block
 
 Params = Dict[str, torch.Tensor]
@@ -352,12 +355,28 @@ class LM(torch.nn.Module):
     def _ffn(self, lp: Layer, plan: Plan, h2: torch.Tensor,
              capacity: Optional[int] = None):
         """The feed-forward half of an attention layer on its normed input,
-        post-norm included; returns (f, MoE aux loss or 0.0)."""
+        post-norm included; returns (f, MoE aux loss or 0.0).
+
+        Under the ``opt_ep`` variant with a ``launch.mesh.ProcessMesh``
+        installed, the full-sequence MoE is expert-parallel, as in the
+        reference (decode, which passes its drop-free ``capacity``, keeps
+        ``moe_block`` there too).  With no GSPMD here, every rank holds the
+        whole activations and parameters, hands ``moe_block_ep`` its own
+        block of tokens and its own expert shards, and gathers the whole
+        output back; the backward makes every gradient whole on every rank
+        again."""
+        from repro_torch.distributed import sharding as _shd
         cfg = self.cfg
         aux = 0.0
         if plan.ffn == "moe":
-            f, aux = moe_block(lp.moe.params(), cfg.moe, h2,
-                               capacity=capacity)
+            mesh = _shd.current_mesh()
+            if (capacity is None and _shd.current_variant() == "opt_ep"
+                    and getattr(mesh, "device_mesh", None) is not None):
+                f, aux = moe_block_ep_replicated(lp.moe.params(), cfg.moe,
+                                                 h2, mesh)
+            else:
+                f, aux = moe_block(lp.moe.params(), cfg.moe, h2,
+                                   capacity=capacity)
             if cfg.moe.dense_residual:
                 f = f + gated_mlp(lp.mlp.params(), h2)
         elif cfg.enc_dec:

@@ -17,6 +17,17 @@ from repro.configs import shape_applicable as r_shape_applicable
 from repro_torch.configs import ARCHS
 from repro_torch.launch import breakdown, dryrun, sweep
 
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs several workers side by side: two intra-op threads a
+    test keep one file's torch work from taking every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 # the reference's record keys (repro.launch.dryrun.run_cell), with the
 # counter's totals under "ops" where it has "hlo" and no XLA cost analysis

@@ -21,6 +21,17 @@ from repro_torch.distributed import grad_compression as t_gc
 from repro_torch.kernels import grad_compress as t_kgc
 from repro_torch.kernels import ops as t_ops
 
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs several workers side by side: two intra-op threads a
+    test keep one file's torch work from taking every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 RNG = np.random.default_rng(1)
 
 

@@ -20,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import dataset as r_dataset
 from repro.core import ingest as r_ingest
@@ -30,6 +31,17 @@ from repro_torch.core import dataset as t_dataset
 from repro_torch.core import ingest as t_ingest
 from repro_torch.core import wal as t_wal
 from repro_torch.core.expr import col as t_col
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs several workers side by side: two intra-op threads a
+    test keep one file's torch work from taking every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
 
 NAMES = ["a", "b", "c", "d"]
 BACKENDS = ["ewah", "kernel", "auto"]

@@ -23,6 +23,17 @@ from repro_torch.core import ewah as t_ewah
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import word_logical as t_wl
 
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs several workers side by side: two intra-op threads a
+    test keep one file's torch work from taking every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 WORD_SHAPES = [(1, 32), (3, 100), (8, 1024), (16, 2048), (20, 1500), (64, 96)]
 
 

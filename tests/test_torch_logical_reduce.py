@@ -26,6 +26,17 @@ from repro_torch.kernels import logical_reduce as t_lr
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import word_logical as t_wl
 
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs several workers side by side: two intra-op threads a
+    test keep one file's torch work from taking every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 NP_OPS = {"and": np.bitwise_and, "or": np.bitwise_or, "xor": np.bitwise_xor}
 FLAG_KINDS = ["exact", "conservative", "absent"]
 

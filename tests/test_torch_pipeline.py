@@ -12,6 +12,16 @@ from repro.data import pipeline as r_pipe
 from repro_torch.data import pipeline as t_pipe
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs several workers side by side: two intra-op threads a
+    test keep one file's torch work from taking every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def corpus():
     return r_pipe.Corpus.synthetic(n_docs=512, doc_len=48, vocab=1000,

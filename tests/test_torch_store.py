@@ -29,6 +29,17 @@ from repro_torch.core import store as t_store
 from repro_torch.core.executor import Executor, execute as t_execute
 from repro_torch.core.expr import col as t_col
 
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """The suite runs several workers side by side: two intra-op threads a
+    test keep one file's torch work from taking every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 NAMES = ["a", "b", "c", "d"]
 BACKENDS = ["ewah", "kernel", "auto"]
 PACKAGES = {"repro": (r_dataset, r_store, r_col),
