@@ -115,7 +115,10 @@ port's main paths through the entry points a user calls:
    within 25% of ``max_memory_allocated``; step time (CUDA events),
    achieved rates, roofline share and idle share are printed.  (c) The
    compressed cell for 3 steps under remat ``full``, ``dots_nb`` and
-   ``none``: the losses agree within rtol 1e-3.
+   ``none``: the losses agree within rtol 1e-3.  (d) One ``--variant
+   opt_ep`` cell on meta (arctic-480b, train_4k, 16 x 16): its MoE layers
+   run ``moe_block_ep`` under a fake process group of 256, and its
+   counted collectives and ``link_bytes`` must be non-zero.
 
 6. The expert-parallel MoE, ``repro_torch.models.moe.moe_block_ep``: one
    spawned rank a card, every card up to 4, over NCCL on a (1, n) mesh,
@@ -126,6 +129,18 @@ port's main paths through the entry points a user calls:
    1e-6; then forward + backward at 32 experts (the float32 gradients of
    128 would not fit beside the weights), ``wi``'s gradient finite and
    non-zero.  Both are timed; the peak memory is printed.
+
+7. The five examples, ``examples/torch_*.py``, on the card at the
+   reference's defaults, each through its ``main(argv)`` in this process
+   (the cluster example, which spawns its workers, as a script): the sort
+   study (100,000 rows; its words must be the reference's), the
+   quickstart (50,000 rows; its own checks against the NumPy oracle; its
+   ``logical_reduce`` launches and seconds by section printed), the
+   serving example (``--arch qwen2-0.5b``, reduced), the training example
+   (``--full-100m --compress 0.25 --steps 20``: the one cut, of the
+   reference's 300 steps; one ``block_sqnorms`` launch a step) and the
+   cluster quickstart (60,000 rows, 3 workers on the card; it must exit
+   0).  Each example's lines, seconds and peak memory are printed.
 
 Each kernel's launch counter is set to 0 just before a main-path run and
 read just after it.  Prints the card's name and power limit, a
@@ -2267,12 +2282,46 @@ def remat_check(torch, cfg, shape):
     return rows
 
 
+DRYRUN_EP_CELL = ("arctic-480b", "train_4k", "single")
+
+
+def dryrun_ep_cell():
+    """One ``--variant opt_ep`` cell on meta, at published widths: its MoE
+    layers run ``moe_block_ep`` under a fake process group of the mesh's
+    size, whose collectives the counter costs.  The all-to-all and
+    all-gather bytes and ``link_bytes`` must be non-zero.  Returns the
+    cell's line."""
+    from repro_torch.launch import dryrun
+    arch, shape, mesh = DRYRUN_EP_CELL
+    args = dryrun.parser().parse_args(["--variant", "opt_ep",
+                                       "--tag", "opt_ep"])
+    rec = dryrun.run_cell(arch, shape, mesh, args)
+    ops = rec.get("ops", {})
+    line = {"cell": f"{arch} {shape} {mesh} opt_ep",
+            "status": rec["status"], "n_devices": rec.get("n_devices"),
+            "collectives": ops.get("collectives"),
+            "collective_counts": ops.get("collective_counts"),
+            "link_bytes": rec.get("link_bytes"),
+            "per_device": ops.get("per_device"),
+            "replication": ops.get("replication"),
+            "flops": ops.get("flops"), "bytes": ops.get("bytes"),
+            "trace_s": rec.get("seconds", {}).get("trace")}
+    log("dryrun ep cell: " + json.dumps(line))
+    coll = line["collectives"] or {}
+    if rec["status"] != "ok" or not line["link_bytes"] or not (
+            coll.get("all-to-all") and coll.get("all-gather")):
+        raise AssertionError(f"dryrun ep cell: no collective counted: "
+                             f"{line}")
+    return line
+
+
 def dryrun_phase(torch, kernels):
     """(a) the full sweep on meta, (b) three real steps at full width
-    against their meta traces, (c) the three remat policies' losses.
-    Every kernel's count is set to 0 before and read after: the phase's
-    compressed steps run ``block_sqnorms`` and nothing else runs a kernel.
-    Returns the phase's lines and its counts."""
+    against their meta traces, (c) the three remat policies' losses,
+    (d) one ``opt_ep`` cell's collectives on meta.  Every kernel's count
+    is set to 0 before and read after: the phase's compressed steps run
+    ``block_sqnorms`` and nothing else runs a kernel.  Returns the phase's
+    lines and its counts."""
     t0 = time.perf_counter()
     kernel_counts(kernels, reset=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as d:
@@ -2280,6 +2329,7 @@ def dryrun_phase(torch, kernels):
     steps = [card_check(torch, *cell) for cell in dryrun_cells()]
     _, cfg, shape, _ = dryrun_cells()[-1]
     remat = remat_check(torch, cfg, shape)
+    ep_cell = dryrun_ep_cell()
     launches = kernel_counts(kernels)
     others = {k: v for k, v in launches.items() if k != "block_sqnorms"}
     if DEVICE == "cuda" and not launches["block_sqnorms"] or any(
@@ -2288,7 +2338,7 @@ def dryrun_phase(torch, kernels):
     log(f"dryrun phase: phase_s={time.perf_counter() - t0} "
         f"sweep_s={sweep_s} launches={json.dumps(launches)}")
     return {"sweep_s": sweep_s, "steps": steps, "remat": remat,
-            "launches": launches}
+            "ep_cell": ep_cell, "launches": launches}
 
 
 # -- expert-parallel MoE over every card, up to 4 --------------------------------
@@ -2486,6 +2536,183 @@ def ep_phase(torch):
     return line
 
 
+# -- the examples ---------------------------------------------------------------
+
+EXAMPLES = ROOT / "examples"
+EXAMPLE_TRAIN_STEPS = 20      # of the reference's 300: the one cut
+EXAMPLES_FULL = True          # the reference's sizes; its CPU test sets False
+EXAMPLE_TIMEOUT_S = 600       # the cluster example's process
+SORT_STUDY_WORDS = {"random-shuffle": 362_891, "random-sort": 354_957,
+                    "block-sort(10)": 249_738, "lex": 199_662,
+                    "gray": 197_580}  # the reference's, 100,000 rows
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the directory stays off
+    ``sys.path``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_line(name, argv, lines, seconds, launches, peak, held=None):
+    """Logs an example's printed lines and its line (``held``: the bytes
+    earlier phases still held when it started, inside its peak); returns
+    the line."""
+    for text in lines:
+        log(f"example {name}| {text}")
+    line = {"example": name, "argv": argv, "seconds": seconds,
+            "max_memory_allocated": peak, "allocated_before": held,
+            "launches": launches, "lines": len(lines)}
+    if DEVICE == "cuda":
+        line["card"] = card_name_and_limit()
+    log("example: " + json.dumps(line))
+    return line
+
+
+def example_run(torch, kernels, name, argv):
+    """``main(argv)`` of ``examples/<name>.py`` in this process, every
+    kernel's count set to 0 just before it and read just after (the
+    launches go to the smoke's counters), its printed lines captured;
+    returns (its value, its line)."""
+    import contextlib
+    import io
+    mod = load_example(name)
+    argv = argv + ["--device", DEVICE]
+    held = None
+    if DEVICE == "cuda":
+        release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+    out = io.StringIO()
+    kernel_counts(kernels, reset=True)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        value = mod.main(argv)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None
+    return value, example_line(name, argv, out.getvalue().splitlines(),
+                               seconds, launches, peak, held)
+
+
+def example_process(name, argv):
+    """``examples/<name>.py`` as a script in its own process (it spawns
+    workers); it must exit 0.  The card's memory.used is sampled every
+    half second meanwhile: its peak, over every process, is the line's
+    memory.  Returns its line."""
+    import threading
+    argv = argv + ["--device", DEVICE]
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    peak, done = [0], threading.Event()
+
+    def sample():
+        while not done.wait(0.5):
+            peak[0] = max(peak[0], int(gpu_memory()[0].split()[0]))
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    if DEVICE == "cuda":
+        sampler.start()
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, str(EXAMPLES / f"{name}.py"),
+                              *argv], env=env, capture_output=True,
+                             text=True, timeout=EXAMPLE_TIMEOUT_S)
+    finally:
+        done.set()
+        if sampler.is_alive():
+            sampler.join(timeout=30)
+    seconds = time.perf_counter() - t0
+    line = example_line(name, argv, res.stdout.splitlines(), seconds, None,
+                        f"{peak[0]} MiB used on the card"
+                        if DEVICE == "cuda" else None)
+    if res.returncode != 0:
+        raise AssertionError(f"example {name}: exit {res.returncode}\n"
+                             f"{res.stderr[-4000:]}")
+    return line
+
+
+def examples_phase(torch, kernels):
+    """The five examples on ``DEVICE`` at the reference's defaults (one cut:
+    the training example's ``EXAMPLE_TRAIN_STEPS`` steps), each through its
+    ``main(argv)`` here, but the cluster example, which spawns its workers,
+    in its own process.  Checks: the sort study's words equal the
+    reference's; the quickstart's self-checks (its ``assert``s against the
+    NumPy oracle) pass, its ``logical_reduce`` launches and section seconds
+    are printed; the served tokens lie in [0, vocab); the training
+    example's losses are finite, with no restart and one ``block_sqnorms``
+    launch a step; the cluster example exits 0.  Returns the lines and the
+    kernels' launches summed over the phase."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    full = EXAMPLES_FULL
+    lines, total = [], {}
+
+    def add(line):
+        lines.append(line)
+        for k, v in (line["launches"] or {}).items():
+            total[k] = total.get(k, 0) + v
+
+    rows, line = example_run(torch, kernels, "torch_sort_study",
+                             [] if full else ["--rows", "20000"])
+    add(line)
+    words = {r["method"]: r["words"] for r in rows}
+    line["words"] = words
+    if full and words != SORT_STUDY_WORDS:
+        raise AssertionError(f"sort study: words {words}, the reference's "
+                             f"{SORT_STUDY_WORDS}")
+    if DEVICE == "cuda" and line["launches"]["logical_reduce"] < 5 * 13:
+        raise AssertionError(f"sort study: launches {line['launches']}")
+
+    sections, line = example_run(torch, kernels, "torch_quickstart",
+                                 [] if full else ["--rows", "3000"])
+    add(line)
+    line["sections_s"] = sections
+    log(f"example torch_quickstart: logical_reduce launches "
+        f"{line['launches']['logical_reduce']}, seconds by section "
+        f"{json.dumps(sections)}")
+
+    arch = "qwen2-0.5b"
+    tokens, line = example_run(
+        torch, kernels, "torch_serve_lm",
+        ["--arch", arch] + ([] if full else ["--new-tokens", "4"]))
+    add(line)
+    vocab = get_config(arch).reduced().vocab
+    if not ((tokens >= 0) & (tokens < vocab)).all():
+        raise AssertionError(f"serve_lm: a token outside [0, {vocab})")
+
+    steps = EXAMPLE_TRAIN_STEPS if full else 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as d:
+        (_, report), line = example_run(
+            torch, kernels, "torch_train_lm",
+            (["--full-100m"] if full else []) + [
+                "--compress", "0.25", "--steps", str(steps),
+                "--ckpt-dir", d])
+    add(line)
+    line["losses"] = report.losses
+    if not np.isfinite(report.losses).all() or report.restarts:
+        raise AssertionError(f"train_lm: losses {report.losses}, "
+                             f"{report.restarts} restarts")
+    if report.steps_run != steps or DEVICE == "cuda" and \
+            line["launches"]["block_sqnorms"] != steps:
+        raise AssertionError(f"train_lm: {report.steps_run} steps, "
+                             f"launches {line['launches']}; expected "
+                             f"{steps} of each")
+
+    line = example_process("torch_cluster_quickstart",
+                           [] if full else ["--rows", "20000"])
+    lines.append(line)
+    log(f"examples phase: phase_s={time.perf_counter() - t0} "
+        f"launches={json.dumps(total)}")
+    return {"lines": lines, "launches": total}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2575,6 +2802,7 @@ def main() -> int:
         f"{[line['arch'] for line in lm_lines]}")
     dryrun = dryrun_phase(torch, (wl, lr, gc, pc, bp))
     ep_phase(torch)
+    examples = examples_phase(torch, (wl, lr, gc, pc, bp))
 
     cm = cost_model.calibrate(device="cuda")
     log("calibrate: " + json.dumps({"dense_threshold": cm.dense_threshold,
@@ -2583,7 +2811,7 @@ def main() -> int:
 
     main_launches = [v for runs in (launches_sorted, launches_unsorted,
                                     launches_store, launches_serve)
-                     for v in runs.values()]
+                     for v in runs.values()] + [examples["launches"]]
     reduce_row = max(reduce_rows, key=lambda r: r["bound_ms"])
     pair_row = index_rows["word_logical"]
     kernels = [{
@@ -2608,7 +2836,8 @@ def main() -> int:
         "name": "block_sqnorms", "route": "cuda",
         "source": "src/repro_torch/csrc/grad_compress.cu",
         "replaces": "src/repro/kernels/grad_compress.py:27",
-        "launches": sq_launches + dryrun["launches"]["block_sqnorms"],
+        "launches": sq_launches + dryrun["launches"]["block_sqnorms"]
+        + examples["launches"]["block_sqnorms"],
         "max_abs_err": sq_row["max_abs_err"],
         "ms": sq_row["ms"], "plain_ms": sq_row["plain_ms"],
         "bound_ms": sq_row["bound_ms"], "bound_by": "bytes",
@@ -2632,6 +2861,7 @@ def main() -> int:
     log(f"launches sorted={launches_sorted} unsorted={launches_unsorted} "
         f"store={launches_store} serve={launches_serve} "
         f"block_sqnorms={sq_launches} dryrun={dryrun['launches']} "
+        f"examples={examples['launches']} "
         f"index_profile="
         f"{ {k: r['launches'] for k, r in index_rows.items()} }; "
         f"logical_reduce row: {reduce_row['label']}")

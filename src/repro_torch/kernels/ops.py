@@ -44,7 +44,8 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but CUDA is not available; "
-            f"pass device='cpu' to run the plain versions on the CPU")
+            f"pass device='cpu' (--device cpu on a command line) to run "
+            f"the plain versions on the CPU")
     if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"device must be cuda, cpu or meta, got {dev}")
     return dev

@@ -19,6 +19,27 @@ global step's divided evenly over the mesh, labelled ``even_split``: a
 one-card trace cannot see the redundant and collective work of an SPMD
 program, so ``collectives`` are empty and ``link_bytes`` is 0.
 
+Under ``--variant opt_ep`` an MoE arch is traced with a ``ProcessMesh``
+over a ``fake`` group of the mesh's size installed
+(``launch.mesh.fake_process_mesh``), so its MoE layers take the
+expert-parallel path, as the reference's do.  Each runs ``moe_block_ep``
+on rank 0's block of tokens and shards: one device's work, counted in the
+counter's ``moe_block_ep`` scope, forward and backward, with its
+collectives.  Its FLOPs and bytes are not divided:
+
+  ops[x] = global[x] / n_devices + per_device[x]     (x: flops, bytes, ...)
+
+where ``global`` is the rest of the step (the even split) and
+``per_device`` the EP bodies.  ``collectives``, ``collective_counts`` and
+``link_bytes`` are the EP bodies', as the reference's per-device HLO
+carries them: 3 all-to-alls, an all-gather, a reduce-scatter and the aux
+loss's all-reduce a layer forward, 2, 1, 1 and 1 more backward.  The
+port's replication around the body (``_ShardIn`` and ``_ShardOut`` in
+``models/moe.py``: every rank gathers the whole output and every
+gradient, where the reference's GSPMD hands the body its shards) has no
+counterpart in the reference's program; it is reported under
+``replication`` and added to neither.
+
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both
@@ -36,6 +57,7 @@ Optional knobs, the reference's:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -150,7 +172,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, args,
     depend on the mesh."""
     from repro_torch.configs import SHAPES, get_config, shape_applicable
     from repro_torch.distributed import sharding as shd
-    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.mesh import fake_process_mesh, make_production_mesh
     from repro_torch.launch.op_analysis import link_bytes
 
     cfg = get_config(arch)
@@ -165,17 +187,23 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, args,
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
     variant = getattr(args, "variant", "baseline")
     bf16 = getattr(args, "bf16_scores", False)
-    if getattr(args, "no_act_constraints", False):
-        shd.use_mesh_rules(None)
-    else:
-        shd.use_mesh_rules(mesh, variant, bf16_scores=bf16,
-                           moe_buf=getattr(args, "moe_buf", "on") != "off")
-    try:
+    ep = (variant == "opt_ep" and cfg.moe is not None
+          and not getattr(args, "no_act_constraints", False))
+    with contextlib.ExitStack() as stack:
+        if ep:      # the trace's MoE layers take the expert-parallel path
+            mesh = stack.enter_context(fake_process_mesh(mesh))
+        if getattr(args, "no_act_constraints", False):
+            shd.use_mesh_rules(None)
+        else:
+            shd.use_mesh_rules(mesh, variant, bf16_scores=bf16,
+                               moe_buf=getattr(args, "moe_buf", "on") != "off")
+        stack.callback(shd.use_mesh_rules, None)
         t0 = time.time()
         model, step, step_args = prepare(cfg, shape, "meta", args)
         t_build = time.time() - t0
         args_dev = argument_bytes(model, shape, step_args, mesh, variant)
-        key = (arch, shape_name)
+        # an EP trace depends on the mesh (rank 0's block of it)
+        key = (arch, shape_name) + ((mesh_kind,) if ep else ())
         t0 = time.time()
         if traces is not None and key in traces:
             counter, arg_bytes = traces[key]
@@ -185,11 +213,13 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, args,
                 traces.clear()      # one trace kept: meshes run in turn
                 traces[key] = (counter, arg_bytes)
         t_trace = time.time() - t0
-    finally:
-        shd.use_mesh_rules(None)
 
     n = mesh.size
-    tot = counter.totals()
+    if ep:
+        from repro_torch.models.moe import EP_SCOPE, REPLICATION_SCOPE
+        tot, body = counter.totals(None), counter.totals(EP_SCOPE)
+    else:
+        tot = counter.totals()
     ops = {"flops": tot["flops"] / n, "bytes": tot["bytes"] / n,
            "matmul_flops": tot["matmul_flops"] / n,
            "collectives": {}, "collective_counts": {},
@@ -197,7 +227,15 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, args,
            "global": {"flops": tot["flops"], "bytes": tot["bytes"],
                       "matmul_flops": tot["matmul_flops"],
                       "peak_bytes": counter.peak_bytes,
-                      "argument_bytes": arg_bytes, "n_ops": counter.n_ops}}
+                      "argument_bytes": arg_bytes,
+                      "n_ops": tot["n_ops"] if ep else counter.n_ops}}
+    if ep:
+        for k in ("flops", "bytes", "matmul_flops"):
+            ops[k] += body[k]
+        ops["collectives"] = body.pop("collectives")
+        ops["collective_counts"] = body.pop("collective_counts")
+        ops["per_device"] = body
+        ops["replication"] = counter.totals(REPLICATION_SCOPE)
     mem = {"argument_size_in_bytes": args_dev,
            "temp_size_in_bytes": counter.peak_bytes - arg_bytes}
     rec.update(
@@ -209,10 +247,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, args,
         link_bytes=link_bytes(ops["collectives"]),
         seconds={"build": t_build, "trace": t_trace},
     )
-    if variant == "opt_ep" and cfg.moe is not None:
-        rec["note"] = ("opt_ep traces moe_block: a one-card trace on meta "
-                       "has no process group, so it runs no collective and "
-                       "the expert-parallel moe_block_ep is not traced")
     print(f"[dryrun] {arch} {shape_name} {mesh_kind}: "
           f"flops/dev={ops['flops']:.3e} bytes/dev={ops['bytes']:.3e} "
           f"link_bytes/dev={rec['link_bytes']:.3e} "

@@ -17,14 +17,17 @@ device, with ``torch.distributed`` groups over its axes (through
 ``init_device_mesh``), over which the expert-parallel MoE
 (``models.moe.moe_block_ep``) runs its collectives.  Installed with
 ``sharding.use_mesh_rules(mesh, "opt_ep")``, it sends the model's MoE
-layers down that path.
+layers down that path.  ``fake_process_mesh`` gives one over a ``fake``
+group in this one process, for a trace on ``meta``: the dry-run counts the
+expert-parallel MoE's collectives under it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -141,3 +144,26 @@ def process_mesh(mesh: Mesh, device: str = "cuda", *,
                     for r in range(mesh.size))
     return ProcessMesh(tuple(mesh.axis_names), tuple(mesh.axis_sizes),
                        devices, dm)
+
+
+@contextlib.contextmanager
+def fake_process_mesh(mesh: Mesh) -> Iterator[ProcessMesh]:
+    """A ``ProcessMesh`` over ``mesh`` for tracing on ``meta``: a ``fake``
+    process group of ``mesh.size`` ranks, all in this process as rank 0,
+    whose collectives return at once and move nothing.  It is started here
+    and destroyed when the block ends; raises if a group is up already (a
+    fake group never stands in for a real job's ``nccl`` or ``gloo``)."""
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up already; a fake mesh "
+                           "traces only outside a job")
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=mesh.size)
+    try:
+        dm = init_device_mesh("cpu", tuple(mesh.axis_sizes),
+                              mesh_dim_names=tuple(mesh.axis_names))
+        yield ProcessMesh(tuple(mesh.axis_names), tuple(mesh.axis_sizes),
+                          ("meta",) * mesh.size, dm)
+    finally:
+        dist.destroy_process_group()

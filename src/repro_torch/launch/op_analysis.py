@@ -35,9 +35,20 @@ sight; their wrappers report each launch (``kernels/_trace.py``), and the
 counter costs it as one op named after the kernel with its operand and
 result bytes and 0 FLOPs, as the parser costs a custom call.
 
-One card runs no collective, so ``collectives`` and ``collective_counts``
-are empty; ``link_bytes`` is the reference's model of link traffic, kept
-for a counter that sees them.
+Collectives are costed as the parser costs them: the functional ops of
+``torch.distributed._functional_collectives`` (``all_to_all_single``,
+``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``) and
+the in-place ``c10d`` ops that ``dist.all_reduce`` and
+``dist.all_gather_into_tensor`` reach each add the larger of their operand
+and result bytes under the reference's kind (``all-to-all``,
+``all-gather``, ...), with the group's size under ``kind + ":group"`` (the
+largest seen) and one to ``collective_counts``; a ``wait_tensor`` costs
+nothing.  A step on one card outside a process group runs none, and then
+both are empty.  ``link_bytes`` is the reference's model of link traffic.
+
+Every op is also counted under its scope (``kernels/_trace.py``): the
+region it ran in, forward or backward, such as the expert-parallel MoE's
+body.  ``totals(scope)`` gives one scope's counts; ``totals()`` all.
 """
 from __future__ import annotations
 
@@ -74,6 +85,20 @@ _MOVE = {aten._to_copy, aten.copy_, aten.clone, aten.cat, aten.stack,
          aten.fill_, aten.zero_, aten.repeat, aten.scalar_tensor,
          aten.arange, aten.full, aten.zeros, aten.ones}
 
+# collectives, by (namespace, op), and the reference's kind of each
+_COLLECTIVES = {
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("c10d", "allreduce_"): "all-reduce",
+    ("c10d", "_allgather_base_"): "all-gather",
+}
+# bookkeeping of the functional collectives: no data moves
+_FREE = {("_c10d_functional", "wait_tensor"),
+         ("_c10d_functional", "_wrap_tensor_autograd")}
+_ALL = object()     # ``totals``'s default: every scope
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SKIP_FRAMES = (os.path.abspath(__file__), os.path.abspath(_trace.__file__))
 
@@ -92,6 +117,26 @@ def _is_view(func) -> bool:
     rets = func._schema.returns
     return bool(rets) and all(r.alias_info is not None
                               and not r.alias_info.is_write for r in rets)
+
+
+def _group_size(args) -> int:
+    """The size of the process group a collective op runs over: the
+    functional ops name it (their last string argument), the ``c10d`` ops
+    pass it (their first script object)."""
+    import torch.distributed as dist
+    for a in reversed(args):
+        if isinstance(a, str):
+            return dist.distributed_c10d._resolve_process_group(a).size()
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            return dist.ProcessGroup.unbox(a).size()
+    raise ValueError("a collective op with no process group")
+
+
+def _scope_totals() -> Dict:
+    return {"flops": 0.0, "matmul_flops": 0.0, "bytes": 0.0, "n_ops": 0,
+            "collectives": defaultdict(float),
+            "collective_counts": defaultdict(float)}
 
 
 def matmul_flops(func, args, out) -> float:
@@ -130,6 +175,8 @@ class OpCounter(TorchDispatchMode):
         self._seen: Dict[int, int] = {}             # id(tensor) -> key
         self._lock = threading.RLock()
         self._where_cache: Dict[object, str] = {}
+        # scope (None outside every scope) -> its totals
+        self.scopes: Dict[Optional[str], Dict] = defaultdict(_scope_totals)
 
     # -- live bytes ------------------------------------------------------
     def track(self, tensors) -> None:
@@ -187,7 +234,9 @@ class OpCounter(TorchDispatchMode):
         return "(autograd)"
 
     def _record(self, op: str, flops: float, mm_flops: float,
-                n_bytes: float) -> None:
+                n_bytes: float) -> Dict:
+        """Adds one op to the totals, its records and its scope's totals;
+        returns the scope's totals."""
         self.n_ops += 1
         self.flops += flops
         self.matmul_flops += mm_flops
@@ -196,12 +245,19 @@ class OpCounter(TorchDispatchMode):
         rec[0] += 1
         rec[1] += flops
         rec[2] += n_bytes
+        sc = self.scopes[_trace.current_scope()]
+        sc["n_ops"] += 1
+        sc["flops"] += flops
+        sc["matmul_flops"] += mm_flops
+        sc["bytes"] += n_bytes
+        return sc
 
     # -- the dispatch mode -------------------------------------------------
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         packet = func.overloadpacket
+        name = (func.namespace, packet.__name__)
         with self._lock:
             ins = _tensors((args, kwargs))
             outs = _tensors(out)
@@ -209,19 +265,26 @@ class OpCounter(TorchDispatchMode):
                 self._track(t)
             for t in outs:
                 self._track(t)
+            kind = _COLLECTIVES.get(name)
             if packet in _ALLOC:
                 n_bytes, flops, mm = 0.0, 0.0, 0.0
-            elif packet in _VIEW_LIKE or _is_view(func):
+            elif (packet in _VIEW_LIKE or name in _FREE
+                  or (kind is None and _is_view(func))):
                 return out
             else:
                 n_bytes = float(_nbytes(ins) + _nbytes(outs))
                 if packet in _MATMUL or packet in _CONV:
                     mm = flops = matmul_flops(func, args, out)
-                elif packet in _MOVE:
+                elif packet in _MOVE or kind is not None:
                     mm = flops = 0.0
                 else:
                     mm, flops = 0.0, float(sum(t.numel() for t in outs))
-            self._record(packet.__name__, flops, mm, n_bytes)
+            sc = self._record(packet.__name__, flops, mm, n_bytes)
+            if kind is not None:
+                coll, group = sc["collectives"], float(_group_size(args))
+                coll[kind] += float(max(_nbytes([t]) for t in ins + outs))
+                coll[kind + ":group"] = max(coll[kind + ":group"], group)
+                sc["collective_counts"][kind] += 1.0
         return out
 
     def kernel(self, name: str, operands: List[torch.Tensor],
@@ -242,13 +305,31 @@ class OpCounter(TorchDispatchMode):
         return super().__exit__(*exc)
 
     # -- results -----------------------------------------------------------
-    def totals(self) -> Dict:
+    def totals(self, scope=_ALL) -> Dict:
         """The reference's ``analyze_text`` dictionary (``flops``,
         ``bytes``, ``collectives``, ``collective_counts``), with
-        ``matmul_flops`` beside it."""
+        ``matmul_flops`` beside it: of every op counted, or of the ops of
+        one ``scope`` (None: those outside every scope), then with their
+        ``n_ops`` too."""
+        if scope is not _ALL:
+            sc = self.scopes.get(scope) or _scope_totals()
+            return {"flops": sc["flops"], "bytes": sc["bytes"],
+                    "matmul_flops": sc["matmul_flops"], "n_ops": sc["n_ops"],
+                    "collectives": dict(sorted(sc["collectives"].items())),
+                    "collective_counts": dict(sorted(
+                        sc["collective_counts"].items()))}
+        coll: Dict[str, float] = defaultdict(float)
+        counts: Dict[str, float] = defaultdict(float)
+        for sc in self.scopes.values():
+            for k, v in sc["collectives"].items():
+                coll[k] = max(coll[k], v) if k.endswith(":group") \
+                    else coll[k] + v
+            for k, v in sc["collective_counts"].items():
+                counts[k] += v
         return {"flops": self.flops, "bytes": self.bytes,
                 "matmul_flops": self.matmul_flops,
-                "collectives": {}, "collective_counts": {}}
+                "collectives": dict(sorted(coll.items())),
+                "collective_counts": dict(sorted(counts.items()))}
 
     def totals_outside(self, prefix: Optional[str] = None) -> Dict:
         """``flops``, ``matmul_flops``, ``bytes`` and ``n_ops`` of the

@@ -37,6 +37,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.kernels import _trace
+
 from .layers import cast, dense_init_, new_param
 
 
@@ -135,6 +137,14 @@ def moe_block(params, spec: MoESpec, x: torch.Tensor, *,
 
 # -- expert parallelism ------------------------------------------------------
 
+# the cost counter's scopes (``kernels/_trace.py``): the body that every
+# rank runs on its own block, one device's work as the reference's
+# ``shard_map`` body is; and the replication around it (``_ShardIn``'s
+# backward, ``_ShardOut``), which the port does in place of GSPMD's layouts
+EP_SCOPE = "moe_block_ep"
+REPLICATION_SCOPE = "ep_replication"
+
+
 def _f_axes(mesh) -> Tuple[str, ...]:
     """The axes the tokens and the experts' FFN dimension split over: every
     axis but ``model``."""
@@ -187,6 +197,13 @@ class _Mean(torch.autograd.Function):
         return g / dist.get_world_size()
 
 
+def _axes(spec, d: int) -> Tuple[str, ...]:
+    """The mesh axes that ``spec`` splits dimension ``d`` over, in order."""
+    axes = spec[d] if d < len(spec) else None
+    return () if axes is None else (
+        (axes,) if isinstance(axes, str) else tuple(axes))
+
+
 def _block(shape: Sequence[int], spec, coord: Dict[str, int],
            sizes: Dict[str, int]) -> Tuple[slice, ...]:
     """The slices of a tensor of ``shape`` that a rank at ``coord`` holds
@@ -194,9 +211,7 @@ def _block(shape: Sequence[int], spec, coord: Dict[str, int],
     names, split row-major over the axes)."""
     out = []
     for d, n in enumerate(shape):
-        axes = spec[d] if d < len(spec) else None
-        axes = () if axes is None else (
-            (axes,) if isinstance(axes, str) else tuple(axes))
+        axes = _axes(spec, d)
         parts, idx = 1, 0
         for a in axes:
             parts, idx = parts * sizes[a], idx * sizes[a] + coord[a]
@@ -230,6 +245,29 @@ def _gather_every(t: torch.Tensor, n: int) -> torch.Tensor:
     return every.view(n, *t.shape)
 
 
+def _assemble(every: torch.Tensor, spec, mesh, shape: Sequence[int], *,
+              sum_copies: bool) -> torch.Tensor:
+    """The whole tensor of ``shape`` from ``every`` (n, *block), every
+    rank's ``_block`` by rank.  The ranks that differ only on the axes
+    ``spec`` leaves out hold copies of one block: summed with
+    ``sum_copies``, else the one at index 0 on those axes taken.  One
+    permutation lays the blocks in place: each dimension is its axes'
+    indices, row-major, then the block's own."""
+    named = _named(spec)
+    e = every.view(*mesh.axis_sizes, *every.shape[1:])
+    copies = [i for i, a in enumerate(mesh.axis_names) if a not in named]
+    if not sum_copies:
+        e = e[tuple(0 if a not in named else slice(None)
+                    for a in mesh.axis_names)]
+    elif copies:
+        e = e.sum(dim=copies)
+    kept = [a for a in mesh.axis_names if a in named]      # e's lead axes
+    perm = []
+    for d in range(len(shape)):
+        perm += [kept.index(a) for a in _axes(spec, d)] + [len(kept) + d]
+    return e.permute(perm).reshape(shape)
+
+
 class _ShardIn(torch.autograd.Function):
     """This rank's block of a tensor that every rank holds whole (a
     ``shard_map`` input spec).  Backward: every rank's block gradient,
@@ -242,16 +280,13 @@ class _ShardIn(torch.autograd.Function):
         return t[_block(t.shape, spec, mesh.coordinate(), mesh.shape)]
 
     @staticmethod
+    @_trace.scoped(REPLICATION_SCOPE)
     def backward(ctx, g):
         mesh = ctx.mesh
         if mesh.size == 1:
             return g, None, None
-        every = _gather_every(g, mesh.size)
-        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
-        for r in range(mesh.size):
-            out[_block(ctx.shape, ctx.spec, mesh.coordinate(r),
-                       mesh.shape)] += every[r]
-        return out, None, None
+        return (_assemble(_gather_every(g, mesh.size), ctx.spec, mesh,
+                          ctx.shape, sum_copies=True), None, None)
 
 
 class _ShardOut(torch.autograd.Function):
@@ -263,18 +298,14 @@ class _ShardOut(torch.autograd.Function):
     output's cotangent over the axes its spec leaves out)."""
 
     @staticmethod
+    @_trace.scoped(REPLICATION_SCOPE)
     def forward(ctx, t, spec, mesh, shape):
         ctx.spec, ctx.mesh = spec, mesh
-        every = _gather_every(t, mesh.size)
-        out = torch.empty(shape, dtype=t.dtype, device=t.device)
-        for r in range(mesh.size):
-            coord = mesh.coordinate(r)
-            if all(i == 0 for a, i in coord.items()
-                   if a not in _named(spec)):
-                out[_block(shape, spec, coord, mesh.shape)] = every[r]
-        return out
+        return _assemble(_gather_every(t, mesh.size), spec, mesh, shape,
+                         sum_copies=False)
 
     @staticmethod
+    @_trace.scoped(REPLICATION_SCOPE)
     def backward(ctx, g):
         mesh = ctx.mesh
         own = g[_block(g.shape, ctx.spec, mesh.coordinate(), mesh.shape)]
@@ -303,6 +334,7 @@ def ep_shards(params, mesh) -> Dict[str, torch.Tensor]:
             for k, spec in specs.items()}
 
 
+@_trace.scoped(EP_SCOPE)
 def moe_block_ep(params, spec: MoESpec, x_l: torch.Tensor, mesh):
     """Expert-parallel MoE, per rank: x_l (B_l, S_l, D), this rank's block
     of tokens -> (y_l, aux), with ``params`` this rank's shards
@@ -351,8 +383,12 @@ def moe_block_ep(params, spec: MoESpec, x_l: torch.Tensor, mesh):
     payload = torch.where(keep[:, None], xf[t_flat[slot_s]], 0).to(x_l.dtype)
     send_x = torch.zeros((M, C_send, D), dtype=x_l.dtype, device=dev)
     send_x = send_x.index_put((md_s, pos_c), payload, accumulate=True)
-    send_e = torch.full((M, C_send), -1, dtype=torch.int64, device=dev)
-    send_e[md_s[keep], pos_c[keep]] = e_loc[slot_s][keep]
+    # int32 ids, as the reference's; a dropped entry writes to a spare
+    # column (no data-dependent shapes, so this traces on meta)
+    send_e = torch.full((M, C_send + 1), -1, dtype=torch.int32, device=dev)
+    send_e = send_e.index_put(
+        (md_s, torch.where(keep, pos, C_send)),
+        e_loc[slot_s].to(torch.int32))[:, :C_send]
     # the reference sets the dropped slots' -1 at the clamped last slot,
     # after the kept one there
     send_e[:, C_send - 1] = torch.where(counts > C_send, -1,
@@ -360,7 +396,7 @@ def moe_block_ep(params, spec: MoESpec, x_l: torch.Tensor, mesh):
 
     # exchange: row m goes to model rank m
     rx = _all_to_all(send_x, g_model).reshape(M * C_send, D)
-    re = _all_to_all(send_e, g_model).reshape(M * C_send)
+    re = _all_to_all(send_e, g_model).reshape(M * C_send).long()
     Tr = M * C_send
 
     # local dispatch to E_loc expert buffers
