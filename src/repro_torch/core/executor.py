@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels import _trace
 from repro_torch.kernels import ops as kops
 from . import cost_model as _cm
 from . import measures as _ms
@@ -97,13 +98,6 @@ class Executor:
         self.dense_threshold = (
             _cm.get_default().dense_threshold
             if dense_threshold is None else dense_threshold)
-        # subexpression-sharing accounting: composite plan nodes memoize
-        # their results in ``cache`` under their canonical plan key, so a
-        # subtree repeated across the statements of a batch (the group-by
-        # fan-out's shared filter, a dashboard's common clause) evaluates
-        # once; these counters make the sharing testable/observable
-        self.sub_hits = 0
-        self.sub_misses = 0
 
     # -- operand loading (shared across a batch via ``cache``) ------------
     def _load(self, node: PBitmap) -> EWAH:
@@ -128,10 +122,12 @@ class Executor:
             cache = self.index.dense_cache
             hit = cache.get(key)
             if hit is None:
-                hit = self._pad_and_flags(bm, cp, self.device)
+                with _trace.span("kernel.upload"):
+                    hit = self._pad_and_flags(bm, cp, self.device)
                 cache[key] = hit
             return hit
-        return self._pad_and_flags(bm, cp, self.device)
+        with _trace.span("kernel.upload"):
+            return self._pad_and_flags(bm, cp, self.device)
 
     @staticmethod
     def _pad_and_flags(bm: EWAH, cp: int, device: torch.device):
@@ -170,14 +166,15 @@ class Executor:
             return node.bitmap
         # composite subtrees memoize by canonical plan key: a subexpression
         # shared across a batch's statements (same ``ckey``, possibly under
-        # commutative reordering) is evaluated exactly once per cache
+        # commutative reordering) is evaluated exactly once per cache; the
+        # counters ``executor.sub_hits`` / ``sub_misses`` show the sharing
         key = ("sub", node.ckey) if node.ckey is not None else None
         if key is not None:
             hit = self.cache.get(key)
             if hit is not None:
-                self.sub_hits += 1
+                _trace.count("executor.sub_hits")
                 return hit
-            self.sub_misses += 1
+            _trace.count("executor.sub_misses")
         bm = self._run_composite(node)
         if key is not None and write:
             # FIFO-bounded by entries *and* result bytes: the eviction
@@ -202,7 +199,10 @@ class Executor:
 
     def _run_composite(self, node: PlanNode) -> EWAH:
         if isinstance(node, PNot):
-            return ~self._run(node.child)
+            child = self._run(node.child)
+            _trace.count("executor.nodes_ewah")
+            with _trace.span("exec.ewah_node", op="not", rows=1):
+                return ~child
         if isinstance(node, PDiff):
             return self._run_diff(node)
         assert isinstance(node, (PAnd, POr))
@@ -211,7 +211,9 @@ class Executor:
         if self._use_kernel([bm for _, bm in children]):
             return self._reduce_kernel(children, op)
         bms = [bm for _, bm in children]
-        return and_many(bms) if op == "and" else or_many(bms)
+        _trace.count("executor.nodes_ewah")
+        with _trace.span("exec.ewah_node", op=op, rows=len(bms)):
+            return and_many(bms) if op == "and" else or_many(bms)
 
     # -- aggregation (compressed domain) -----------------------------------
     def run_count(self, node: PCount) -> int:
@@ -222,7 +224,8 @@ class Executor:
             return self.index.n_rows if child.value else 0
         # the filter is a *subexpression* of the count statement: cached,
         # so a row query or group-by over the same filter reuses it
-        return self._run(child).count()
+        with _trace.span("exec.filter"):
+            return self._run(child).count()
 
     # a group bitmap whose literal pool would expand to far more intervals
     # than the filter exposes is cheaper to intersect pairwise: past this
@@ -261,39 +264,48 @@ class Executor:
                 else:
                     out[g] = self._run(gn).count()
             return out
-        fbm = self._run(filt)
-        # the filter always takes the interval view, even when
-        # literal-heavy: its expansion is paid once (memoized on the EWAH,
-        # which the subexpression cache keeps alive) and the per-query
-        # coverage passes scan *group* intervals with only a log factor in
-        # the filter's interval count — whereas escaping a fragmented
-        # filter to pairwise ``and_count`` costs O(filter runs) per group,
-        # which is catastrophic for high-cardinality group-bys
-        fs, fe = fbm.set_intervals()
+        with _trace.span("exec.filter"):
+            fbm = self._run(filt)
+            # the filter always takes the interval view, even when
+            # literal-heavy: its expansion is paid once (memoized on the
+            # EWAH, which the subexpression cache keeps alive) and the
+            # per-query coverage passes scan *group* intervals with only a
+            # log factor in the filter's interval count — whereas escaping
+            # a fragmented filter to pairwise ``and_count`` costs O(filter
+            # runs) per group, which is catastrophic for high-cardinality
+            # group-bys
+            fs, fe = fbm.set_intervals()
         if len(fs) == 0:
             return out
         starts, ends, gids = [], [], []
         pair_budget = self.LIT_INTERVAL_CUTOFF * (len(fs) + 32)
-        for g, gn in enumerate(node.groups):
-            gbm = self._run(gn)
-            rl = gbm.runlist()
-            # 32 * literal words bounds the group's expanded interval count
-            if 32 * len(rl.lits) > pair_budget + rl.n_intervals:
-                out[g] = fbm.and_count(gbm)
-                continue
-            s, e = gbm.set_intervals()
-            if len(s):
-                starts.append(s)
-                ends.append(e)
-                gids.append(np.full(len(s), g, dtype=np.int64))
-        if not starts:
-            return out
-        S = np.concatenate(starts)
-        E = np.concatenate(ends)
-        G = np.concatenate(gids)
-        w = _interval_coverage(fs, fe, E) - _interval_coverage(fs, fe, S)
-        out += np.bincount(G, weights=w,
-                           minlength=len(node.groups)).astype(np.int64)
+        with _trace.span("groupby.catalog", col=node.col):
+            for g, gn in enumerate(node.groups):
+                gbm = self._run(gn)
+                rl = gbm.runlist()
+                # 32 * literal words bounds the group's expanded interval
+                # count
+                if 32 * len(rl.lits) > pair_budget + rl.n_intervals:
+                    out[g] = fbm.and_count(gbm)
+                    continue
+                s, e = gbm.set_intervals()
+                if len(s):
+                    starts.append(s)
+                    ends.append(e)
+                    gids.append(np.full(len(s), g, dtype=np.int64))
+            if starts:
+                S = np.concatenate(starts)
+                E = np.concatenate(ends)
+                G = np.concatenate(gids)
+                w = (_interval_coverage(fs, fe, E)
+                     - _interval_coverage(fs, fe, S))
+        if starts:
+            with _trace.span("groupby.cells"):
+                out += np.bincount(G, weights=w, minlength=len(
+                    node.groups)).astype(np.int64)
+        # a group meets the filter exactly when its count is not zero
+        _trace.count("groupby.value_bitmaps", len(node.groups))
+        _trace.count("groupby.value_bitmaps_met", int(np.count_nonzero(out)))
         return out
 
     def _filter_intervals(self, filt: Optional[PlanNode]):
@@ -319,7 +331,8 @@ class Executor:
         directly (one gather, three reductions) — no row ids, no result
         bitmap, no row reconstruction."""
         values = self.index.measure(node.measure)
-        fs, fe = self._filter_intervals(node.filter)
+        with _trace.span("exec.filter"):
+            fs, fe = self._filter_intervals(node.filter)
         return _ms.reduce_intervals(values, fs, fe)
 
     def run_group_agg(self, node: PGroupAgg) -> Dict:
@@ -342,36 +355,49 @@ class Executor:
         values = self.index.measure(name) if name is not None else None
         dt = _ms.measure_dtype_str(values) if values is not None else None
         out = _ms.empty_group_agg(node.cols, cards, name, dt)
-        fs, fe = self._filter_intervals(node.filter)
+        with _trace.span("exec.filter"):
+            fs, fe = self._filter_intervals(node.filter)
         if not len(fs):
             return out
         F = int((fe - fs).sum())
-        fvals = _ms.gather(values, fs, fe) if values is not None else None
-        pref = _ms.prefix_sums(fvals) if fvals is not None else None
         # per-column segment catalogs in filtered coordinates, sorted by
         # start (segments of one column are disjoint and cover [0, F))
         catalogs = []
-        for groups in node.groups:
+        for c, groups in zip(node.cols, node.groups):
             ss, es, rs = [], [], []
-            for g, gn in enumerate(groups):
-                s, e = self._run(gn).set_intervals()
-                if not len(s):
-                    continue
-                cs = _ms.interval_coverage(fs, fe, s)
-                ce = _ms.interval_coverage(fs, fe, e)
-                keep = ce > cs
-                if not keep.any():
-                    continue
-                ss.append(cs[keep])
-                es.append(ce[keep])
-                rs.append(np.full(int(keep.sum()), g, dtype=np.int64))
-            if not ss:
-                return out  # a partition with no coverage means F == 0
-            S = np.concatenate(ss)
-            E = np.concatenate(es)
-            R = np.concatenate(rs)
-            order = np.argsort(S, kind="stable")
-            catalogs.append((S[order], E[order], R[order]))
+            with _trace.span("groupby.catalog", col=c):
+                for g, gn in enumerate(groups):
+                    s, e = self._run(gn).set_intervals()
+                    if not len(s):
+                        continue
+                    cs = _ms.interval_coverage(fs, fe, s)
+                    ce = _ms.interval_coverage(fs, fe, e)
+                    keep = ce > cs
+                    if not keep.any():
+                        continue
+                    ss.append(cs[keep])
+                    es.append(ce[keep])
+                    rs.append(np.full(int(keep.sum()), g, dtype=np.int64))
+                _trace.count("groupby.value_bitmaps", len(groups))
+                _trace.count("groupby.value_bitmaps_met", len(ss))
+                if not ss:
+                    return out  # a partition with no coverage means F == 0
+                S = np.concatenate(ss)
+                E = np.concatenate(es)
+                R = np.concatenate(rs)
+                order = np.argsort(S, kind="stable")
+                catalogs.append((S[order], E[order], R[order]))
+        with _trace.span("groupby.cells"):
+            self._group_cells(out, catalogs, cards, F, values, fs, fe)
+        return out
+
+    @staticmethod
+    def _group_cells(out: Dict, catalogs, cards, F: int, values, fs, fe):
+        """Bin the filtered domain's segments into ``out``'s cells: the
+        measure gathered into filtered coordinates and prefix-summed, each
+        segment's sum two subtractions, its min/max one ``reduceat``."""
+        fvals = _ms.gather(values, fs, fe) if values is not None else None
+        pref = _ms.prefix_sums(fvals) if fvals is not None else None
         if len(catalogs) == 1:
             S, E, R = catalogs[0]
             cell = R
@@ -394,7 +420,6 @@ class Executor:
             mins, maxs = _ms.segmented_min_max(fvals, S, E)
             np.minimum.at(out["mins"], cell, mins)
             np.maximum.at(out["maxs"], cell, maxs)
-        return out
 
     def _run_diff(self, node: PDiff) -> EWAH:
         """AND(pos) \\ OR(neg): one fused kernel launch on the dense path,
@@ -402,16 +427,21 @@ class Executor:
         materialize their complements."""
         pos = [(ch, self._run(ch)) for ch in node.pos]
         neg = [(ch, self._run(ch)) for ch in node.neg]
+        rows = len(pos) + len(neg)
         if self._use_kernel([bm for _, bm in pos + neg]):
-            pw, pf = zip(*[self._dense_operand(n, bm) for n, bm in pos])
-            nw, nf = zip(*[self._dense_operand(n, bm) for n, bm in neg])
-            out = kops.to_numpy_words(kops.diff_reduce(pw, pf, nw, nf))
-            n_words = pos[0][1].n_words_uncompressed
-            return EWAH.from_words(out[:n_words], pos[0][1].n_bits)
-        acc = and_many([bm for _, bm in pos])
-        for _, bm in neg:
-            acc = acc.andnot(bm)
-        return acc
+            _trace.count("executor.nodes_kernel")
+            with _trace.span("exec.kernel_node", op="andnot", rows=rows):
+                pw, pf = zip(*[self._dense_operand(n, bm) for n, bm in pos])
+                nw, nf = zip(*[self._dense_operand(n, bm) for n, bm in neg])
+                with _trace.span("kernel.launch"):
+                    res = kops.diff_reduce(pw, pf, nw, nf)
+                return self._from_device(res, pos[0][1])
+        _trace.count("executor.nodes_ewah")
+        with _trace.span("exec.ewah_node", op="andnot", rows=rows):
+            acc = and_many([bm for _, bm in pos])
+            for _, bm in neg:
+                acc = acc.andnot(bm)
+            return acc
 
     def _use_kernel(self, bms: Sequence[EWAH]) -> bool:
         if self.backend == "ewah":
@@ -427,12 +457,23 @@ class Executor:
         return len(bms) >= 2 and density >= self.dense_threshold
 
     def _reduce_kernel(self, children, op: str) -> EWAH:
-        ws, fs = zip(*[self._dense_operand(node, bm) for node, bm in children])
-        out = kops.to_numpy_words(kops.logical_reduce(ws, op=op,
-                                                      row_flags=fs))
-        n_bits = children[0][1].n_bits
-        n_words = children[0][1].n_words_uncompressed
-        return EWAH.from_words(out[:n_words], n_bits)
+        _trace.count("executor.nodes_kernel")
+        with _trace.span("exec.kernel_node", op=op, rows=len(children)):
+            ws, fs = zip(*[self._dense_operand(node, bm)
+                           for node, bm in children])
+            with _trace.span("kernel.launch"):
+                res = kops.logical_reduce(ws, op=op, row_flags=fs)
+            return self._from_device(res, children[0][1])
+
+    @staticmethod
+    def _from_device(res: torch.Tensor, like: EWAH) -> EWAH:
+        """A kernel's result row back on the host, as an EWAH of
+        ``like``'s length."""
+        with _trace.span("kernel.download"):
+            out = kops.to_numpy_words(res)
+        with _trace.span("ewah.from_words"):
+            return EWAH.from_words(out[:like.n_words_uncompressed],
+                                   like.n_bits)
 
 
 def _shard_caches(index, cache: Optional[Dict]) -> Optional[List[Dict]]:

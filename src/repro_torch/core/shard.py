@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.kernels import _trace
 from .ewah import EWAH
 from .expr import Expr, canonical_key
 from .index import (BitmapIndex, ColumnIndex, IndexBuilder, WORD_ROWS,
@@ -399,14 +400,19 @@ class ShardedIndex:
             for i in range(n):
                 parts[i] = rcaches[i].get(key)
         missing = [i for i, p in enumerate(parts) if p is None]
+
+        def shard_task(i: int):
+            with _trace.span("shard.task", shard=i):
+                return run_shard(i, shards[i])
+
         if isinstance(pool, ShardProcessPool) and len(missing) > 1:
             fresh = pool.run_shards(task, missing, backend=backend,
                                     optimize=optimize)
         elif pool is not None and not isinstance(pool, ShardProcessPool) \
                 and len(missing) > 1:
-            fresh = list(pool.map(lambda i: run_shard(i, shards[i]), missing))
+            fresh = list(pool.map(_trace.carry(shard_task), missing))
         else:
-            fresh = [run_shard(i, shards[i]) for i in missing]
+            fresh = [shard_task(i) for i in missing]
         for i, res in zip(missing, fresh):
             parts[i] = res
             if key is not None:
@@ -444,12 +450,11 @@ class ShardedIndex:
         across tombstone changes.
         """
         from .executor import Executor  # local: executor also dispatches here
-        from .planner import plan
         key = (("expr", backend, bool(optimize), canonical_key(e))
                if isinstance(e, Expr) else None)
 
         def run_shard(i: int, sh: BitmapIndex) -> EWAH:
-            node = plan(sh, e, optimize=optimize) if isinstance(e, Expr) else e
+            node = _plan_task(sh, ("expr", e), optimize)
             cache = caches[i] if caches is not None else None
             return Executor(sh, backend=backend, cache=cache,
                             device=device).run(node)
@@ -467,14 +472,13 @@ class ShardedIndex:
         bitmap is ever concatenated for an aggregate.
         """
         from .executor import Executor
-        from .planner import Planner
         if e is not None and not isinstance(e, Expr):
             raise TypeError(f"count() takes an Expr or None, got {e!r}")
         key = ("count", backend, bool(optimize),
                canonical_key(e) if e is not None else None)
 
         def run_shard(i: int, sh: BitmapIndex) -> int:
-            node = Planner(sh, optimize=optimize).plan_count(e)
+            node = _plan_task(sh, ("count", e), optimize)
             cache = caches[i] if caches is not None else None
             return Executor(sh, backend=backend, cache=cache,
                             device=device).run_count(node)
@@ -497,7 +501,6 @@ class ShardedIndex:
         exists here).
         """
         from .executor import Executor
-        from .planner import Planner
         if e is not None and not isinstance(e, Expr):
             raise TypeError(f"group_count() takes an Expr or None, got {e!r}")
         c = self.resolve_column(col)
@@ -505,7 +508,7 @@ class ShardedIndex:
                canonical_key(e) if e is not None else None)
 
         def run_shard(i: int, sh: BitmapIndex) -> np.ndarray:
-            node = Planner(sh, optimize=optimize).plan_group_count(c, e)
+            node = _plan_task(sh, ("gcount", c, e), optimize)
             cache = caches[i] if caches is not None else None
             return Executor(sh, backend=backend, cache=cache,
                             device=device).run_group_count(node)
@@ -530,7 +533,6 @@ class ShardedIndex:
         intervals, the coordinator merges the four-number partials —
         bitmaps and measure values never leave their shard."""
         from .executor import Executor
-        from .planner import Planner
         from .measures import merge_scalar_aggs
         if e is not None and not isinstance(e, Expr):
             raise TypeError(f"agg() takes an Expr or None, got {e!r}")
@@ -539,7 +541,7 @@ class ShardedIndex:
                canonical_key(e) if e is not None else None)
 
         def run_shard(i: int, sh: BitmapIndex):
-            node = Planner(sh, optimize=optimize).plan_agg(name, e)
+            node = _plan_task(sh, ("agg", name, e), optimize)
             cache = caches[i] if caches is not None else None
             return Executor(sh, backend=backend, cache=cache,
                             device=device).run_agg(node)
@@ -557,7 +559,6 @@ class ShardedIndex:
         elementwise (sums/counts add, mins/maxs combine against their
         identities)."""
         from .executor import Executor
-        from .planner import Planner
         from .measures import merge_group_aggs
         if e is not None and not isinstance(e, Expr):
             raise TypeError(f"group_agg() takes an Expr or None, got {e!r}")
@@ -569,8 +570,7 @@ class ShardedIndex:
                canonical_key(e) if e is not None else None)
 
         def run_shard(i: int, sh: BitmapIndex) -> Dict:
-            node = Planner(sh, optimize=optimize).plan_group_agg(
-                name, list(cs), e)
+            node = _plan_task(sh, ("gagg", name, cs, e), optimize)
             cache = caches[i] if caches is not None else None
             return Executor(sh, backend=backend, cache=cache,
                             device=device).run_group_agg(node)
@@ -758,29 +758,23 @@ def run_shard_task(sh: BitmapIndex, task, backend: str = "auto",
     the single-process ``ShardedIndex`` fan-out would.  ``device`` is where the shard's kernel path runs.
     """
     from .executor import Executor
-    from .planner import Planner, plan
     kind = task[0]
     ex = Executor(sh, backend=backend, cache=cache, device=device)
+    node = _plan_task(sh, task, optimize)
     if kind == "expr":
-        e = task[1]
-        node = plan(sh, e, optimize=optimize) if isinstance(e, Expr) else e
         return ex.run(node)
     if kind == "count":
-        return ex.run_count(Planner(sh, optimize=optimize).plan_count(task[1]))
+        return ex.run_count(node)
     if kind == "gcount":
-        return ex.run_group_count(
-            Planner(sh, optimize=optimize).plan_group_count(task[1], task[2]))
+        return ex.run_group_count(node)
     if kind == "agg":
-        return ex.run_agg(
-            Planner(sh, optimize=optimize).plan_agg(task[1], task[2]))
+        return ex.run_agg(node)
     if kind == "gagg":
-        return ex.run_group_agg(
-            Planner(sh, optimize=optimize).plan_group_agg(
-                task[1], list(task[2]), task[3]))
+        return ex.run_group_agg(node)
     if kind == "gtop":
-        col, e, m, measure = task[1], task[2], int(task[3]), task[4]
-        agg = ex.run_group_agg(
-            Planner(sh, optimize=optimize).plan_group_agg(measure, [col], e))
+        m = int(task[3])
+        measure = task[4]
+        agg = ex.run_group_agg(node)
         counts = agg["counts"]
         vals = counts if measure is None else agg["sums"]
         nz = np.flatnonzero(counts)
@@ -796,14 +790,35 @@ def run_shard_task(sh: BitmapIndex, task, backend: str = "auto",
             tau = 0.0 if vals.dtype.kind == "f" else 0
         return {"ids": order, "vals": vals[order], "counts": counts[order],
                 "tau": tau, "prunable": prunable}
-    if kind == "gvals":
-        col, e, ids, measure = task[1], task[2], task[3], task[4]
-        ids = np.asarray(ids, dtype=np.int64)
-        agg = ex.run_group_agg(
-            Planner(sh, optimize=optimize).plan_group_agg(measure, [col], e))
-        counts = agg["counts"]
-        vals = counts if measure is None else agg["sums"]
-        return {"vals": vals[ids], "counts": counts[ids]}
+    # gvals: ``_plan_task`` refused every other kind
+    ids = np.asarray(task[3], dtype=np.int64)
+    agg = ex.run_group_agg(node)
+    counts = agg["counts"]
+    vals = counts if task[4] is None else agg["sums"]
+    return {"vals": vals[ids], "counts": counts[ids]}
+
+
+def _plan_task(sh: BitmapIndex, task, optimize: bool):
+    """The shard's plan of one statement task (see ``run_shard_task``),
+    timed as the span ``exec.plan``."""
+    from .planner import Planner, plan
+    kind = task[0]
+    with _trace.span("exec.plan"):
+        p = Planner(sh, optimize=optimize)
+        if kind == "expr":
+            e = task[1]
+            return plan(sh, e, optimize=optimize) if isinstance(e, Expr) \
+                else e
+        if kind == "count":
+            return p.plan_count(task[1])
+        if kind == "gcount":
+            return p.plan_group_count(task[1], task[2])
+        if kind == "agg":
+            return p.plan_agg(task[1], task[2])
+        if kind == "gagg":
+            return p.plan_group_agg(task[1], list(task[2]), task[3])
+        if kind in ("gtop", "gvals"):
+            return p.plan_group_agg(task[4], [task[1]], task[2])
     raise ValueError(f"unknown shard task {kind!r}")
 
 

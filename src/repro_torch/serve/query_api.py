@@ -131,6 +131,7 @@ from repro_torch.core.executor import (execute, execute_agg, execute_count,
                                  execute_group_agg, execute_group_count)
 from repro_torch.core.lru import LRUCache, payload_kind, payload_nbytes
 from repro_torch.core.planner import explain, plan
+from repro_torch.kernels import _trace
 from repro_torch.kernels.ops import resolve_device
 
 DEFAULT_CACHE_BYTES = 64 << 20  # total EWAH payload budget for the result LRU
@@ -224,6 +225,22 @@ def parse_statement(obj: Dict) -> Dict:
     else:
         raise ValueError(f"unknown select {kind!r}")
     return _apply_limit(out, obj.get("limit"))
+
+
+# the prefix of the per-kind statement counters, ``statements/<kind>/n``
+# and ``statements/<kind>/seconds``
+_STATEMENTS = "statements/"
+
+
+def statement_kind(obj: Dict) -> str:
+    """A valid wire statement's kind as its ``select`` names it, with the
+    number of grouping columns: ``count``, ``sum.by2``, ``top_k``."""
+    sel = obj["select"]
+    by = sel.get("by")
+    kind = next(k for k in sel if k != "by")
+    if by is None:
+        return kind
+    return f"{kind}.by{1 if isinstance(by, (str, int)) else len(by)}"
 
 
 def _apply_limit(st: Dict, limit) -> Dict:
@@ -861,6 +878,10 @@ class QueryService:
             return out
 
     # -- execution ---------------------------------------------------------
+    def _submit(self, fn, *args):
+        """Run ``fn(*args)`` on the query pool, under the caller's span."""
+        return self._pool.submit(_trace.carry(fn), *args)
+
     def _snapshot(self):
         """(generation, index) pair that is safe to execute and cache under
         (generation read first; see ``set_index`` for the ordering proof)."""
@@ -914,7 +935,7 @@ class QueryService:
 
     def query(self, expr, explain_plan: bool = False) -> Dict:
         e = parse_expr(expr) if isinstance(expr, dict) else expr
-        return self._pool.submit(self._query_one, e, explain_plan).result()
+        return self._submit(self._query_one, e, explain_plan).result()
 
     def query_batch(self, exprs: Sequence) -> List[Dict]:
         es = [parse_expr(e) if isinstance(e, dict) else e for e in exprs]
@@ -925,8 +946,7 @@ class QueryService:
         # twice), with per-shard sub-caches on the sharded path
         snapshot = self._snapshot()
         op_cache: Dict = {}
-        futs = [self._pool.submit(self._query_one, e, False, op_cache,
-                                  snapshot)
+        futs = [self._submit(self._query_one, e, False, op_cache, snapshot)
                 for e in es]
         return [f.result() for f in futs]
 
@@ -1042,50 +1062,59 @@ class QueryService:
 
     def count(self, where=None) -> Dict:
         e = parse_expr(where) if isinstance(where, dict) else where
-        return self._pool.submit(self._count_one, e).result()
+        return self._submit(self._count_one, e).result()
 
     def group_count(self, col, where=None) -> Dict:
         e = parse_expr(where) if isinstance(where, dict) else where
-        return self._pool.submit(self._group_count_one, col, e).result()
+        return self._submit(self._group_count_one, col, e).result()
 
     def top_k(self, col, k: int, where=None, measure=None) -> Dict:
         e = parse_expr(where) if isinstance(where, dict) else where
-        return self._pool.submit(self._top_k_one, col, k, e,
-                                 measure).result()
+        return self._submit(self._top_k_one, col, k, e, measure).result()
 
     def agg(self, op: str, measure: str, where=None) -> Dict:
         """Scalar sum/avg/min/max of a measure under an optional filter."""
         e = parse_expr(where) if isinstance(where, dict) else where
-        return self._pool.submit(self._agg_one, op, measure, e).result()
+        return self._submit(self._agg_one, op, measure, e).result()
 
     def group_agg(self, op: str, measure: Optional[str], by,
                   where=None) -> Dict:
         """Grouped sum/avg/min/max/count over 1-2 columns."""
         e = parse_expr(where) if isinstance(where, dict) else where
-        return self._pool.submit(self._group_agg_one, op, measure,
-                                 list(by), e).result()
+        return self._submit(self._group_agg_one, op, measure, list(by),
+                            e).result()
 
     def sql(self, text: str) -> Dict:
         """Execute one SQL-ish statement (see ``parse_sql``)."""
         return self.statement(parse_sql(text))
 
     def statement(self, obj: Dict) -> Dict:
-        """Execute one ``{"select": ..., "where": ...}`` wire statement."""
+        """Execute one ``{"select": ..., "where": ...}`` wire statement.
+        Its server time is added to the counters of its kind
+        (``statement_kind``), which ``stats()`` reports as
+        ``statements``."""
         st = parse_statement(obj)
         kind, e = st["kind"], st["where"]
         if kind == "count":
-            return self._pool.submit(self._count_one, e).result()
-        if kind == "group_count":
-            return self._pool.submit(self._group_count_one,
-                                     st["col"], e).result()
-        if kind == "agg":
-            return self._pool.submit(self._agg_one, st["op"],
-                                     st["measure"], e).result()
-        if kind == "group_agg":
-            return self._pool.submit(self._group_agg_one, st["op"],
-                                     st["measure"], st["by"], e).result()
-        return self._pool.submit(self._top_k_one, st["col"], st["k"], e,
-                                 st["measure"]).result()
+            fn, args = self._count_one, (e,)
+        elif kind == "group_count":
+            fn, args = self._group_count_one, (st["col"], e)
+        elif kind == "agg":
+            fn, args = self._agg_one, (st["op"], st["measure"], e)
+        elif kind == "group_agg":
+            fn, args = self._group_agg_one, (st["op"], st["measure"],
+                                             st["by"], e)
+        else:
+            fn, args = self._top_k_one, (st["col"], st["k"], e,
+                                         st["measure"])
+        name = statement_kind(obj)
+        t = time.perf_counter()
+        with _trace.span("service.statement", kind=name):
+            out = self._submit(fn, *args).result()
+        _trace.count(f"{_STATEMENTS}{name}/n")
+        _trace.count(f"{_STATEMENTS}{name}/seconds",
+                     time.perf_counter() - t)
+        return out
 
     def stats(self) -> Dict:
         from repro_torch.core.ingest import LiveIndex
@@ -1125,6 +1154,14 @@ class QueryService:
                 self.index_dir).get("layout")
         else:
             out["layout"] = None
+        counts = _trace.counter_values()
+        out["counters"] = {k: v for k, v in sorted(counts.items())
+                           if not k.startswith(_STATEMENTS)}
+        out["statements"] = statements = {}
+        for k, v in sorted(counts.items()):
+            if k.startswith(_STATEMENTS):
+                name, field = k[len(_STATEMENTS):].rsplit("/", 1)
+                statements.setdefault(name, {})[field] = v
         m = cost_model.get_default()
         th = m.dense_threshold
         out["cost_model"] = {
@@ -1217,7 +1254,8 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         try:
-            self._post()
+            with _trace.span("http.request", path=self.path):
+                self._post()
         except _HTTPError as exc:
             self._fail(exc)
         except (ValueError, KeyError, TypeError) as exc:
