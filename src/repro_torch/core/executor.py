@@ -344,11 +344,14 @@ class Executor:
         and prefix-summed, so every group's sum is two subtractions and its
         min/max one segmented ``reduceat``.  Each grouping column's rank
         bitmaps *partition* the rows (every row holds exactly one value),
-        so their interval images partition the filtered domain: one column
-        accumulates per-rank segments directly; two columns sweep the
-        *elementary segments* induced by both columns' boundaries, binning
-        each into its ``(rank_a, rank_b)`` cell — cost O(selected rows +
-        intervals), never O(card_a * card_b * rows).
+        so their intervals, merged, are the column's run-length encoding:
+        a run catalog built once per index (``_run_catalog``) that the
+        filter's intervals probe for the runs they meet, in filtered
+        coordinates.  One column accumulates per-rank segments directly;
+        two columns sweep the *elementary segments* induced by both
+        columns' boundaries, binning each into its ``(rank_a, rank_b)``
+        cell — cost O(selected rows + runs met), never O(card_a * card_b
+        * rows) nor O(card) value bitmaps a statement.
         """
         cards = tuple(len(g) for g in node.groups)
         name = node.measure
@@ -360,36 +363,33 @@ class Executor:
         if not len(fs):
             return out
         F = int((fe - fs).sum())
-        # per-column segment catalogs in filtered coordinates, sorted by
-        # start (segments of one column are disjoint and cover [0, F))
+        # per-column segments in filtered coordinates, sorted by start
+        # (segments of one column are disjoint and cover [0, F))
         catalogs = []
         for c, groups in zip(node.cols, node.groups):
-            ss, es, rs = [], [], []
             with _trace.span("groupby.catalog", col=c):
-                for g, gn in enumerate(groups):
-                    s, e = self._run(gn).set_intervals()
-                    if not len(s):
-                        continue
-                    cs = _ms.interval_coverage(fs, fe, s)
-                    ce = _ms.interval_coverage(fs, fe, e)
-                    keep = ce > cs
-                    if not keep.any():
-                        continue
-                    ss.append(cs[keep])
-                    es.append(ce[keep])
-                    rs.append(np.full(int(keep.sum()), g, dtype=np.int64))
+                starts, ranks = self._run_catalog(c, groups)
+                cat = _ms.probe_catalog(starts, ranks, self.index.n_rows,
+                                        fs, fe)
                 _trace.count("groupby.value_bitmaps", len(groups))
-                _trace.count("groupby.value_bitmaps_met", len(ss))
-                if not ss:
-                    return out  # a partition with no coverage means F == 0
-                S = np.concatenate(ss)
-                E = np.concatenate(es)
-                R = np.concatenate(rs)
-                order = np.argsort(S, kind="stable")
-                catalogs.append((S[order], E[order], R[order]))
+                _trace.count("groupby.value_bitmaps_met", int(
+                    np.count_nonzero(np.bincount(cat[2]))))
+            catalogs.append(cat)
         with _trace.span("groupby.cells"):
             self._group_cells(out, catalogs, cards, F, values, fs, fe)
         return out
+
+    def _run_catalog(self, c: int, groups: Sequence[PlanNode]):
+        """Column ``c``'s run catalog, built from its value nodes' set-bit
+        intervals at the first group-by over it and memoized on the
+        index's ``ColumnIndex`` (counters ``groupby.catalog_builds`` and
+        ``groupby.catalog_probes``)."""
+        cat, built = self.index.columns[c].run_catalog(
+            lambda: _ms.run_catalog([self._run(gn).set_intervals()
+                                     for gn in groups], self.index.n_rows))
+        _trace.count("groupby.catalog_builds" if built
+                     else "groupby.catalog_probes")
+        return cat
 
     @staticmethod
     def _group_cells(out: Dict, catalogs, cards, F: int, values, fs, fe):

@@ -18,7 +18,7 @@ Partition bounds are validated to be 32-bit-word multiples at build time, so
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +39,10 @@ class ColumnIndex:
     # only the bitmaps a plan actually references pay the decode
     _counts_cache: Dict[int, int] = field(
         default_factory=dict, repr=False, compare=False)
+    # lazily-memoized run catalog of the value-rank partition (see
+    # ``run_catalog``); never built at open
+    _catalog_cache: Optional[Tuple[np.ndarray, np.ndarray]] = field(
+        default=None, repr=False, compare=False)
 
     @property
     def size_words(self) -> int:
@@ -69,9 +73,27 @@ class ColumnIndex:
             self._counts_cache[bitmap_id] = cnt
         return cnt
 
+    def run_catalog(self,
+                    build: Callable[[], Tuple[np.ndarray, np.ndarray]]):
+        """The column's run catalog over its index's rows — sorted run
+        starts and each run's rank (``measures.run_catalog``) — and whether
+        this call built it.
+
+        ``build()`` makes it on the first call; later calls, whatever
+        their filter, return the same arrays for the index's lifetime.
+        Concurrent first calls may each build: the last one stored wins,
+        as every build gives the same arrays.  Treat them as read-only."""
+        cat = self._catalog_cache
+        if cat is not None:
+            return cat, False
+        cat = build()
+        self._catalog_cache = cat
+        return cat, True
+
     def invalidate_sizes(self) -> None:
         self._sizes_cache = None
         self._counts_cache.clear()
+        self._catalog_cache = None
 
     def bitmap_uncompressed_words(self, n_rows_per_part: Sequence[int]) -> np.ndarray:
         total = sum(-(-r // 32) for r in n_rows_per_part)

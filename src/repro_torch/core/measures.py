@@ -11,12 +11,13 @@ reducing the measure array over the intervals, never reconstructing rows.
 The key device is the *filtered domain*: the filter's intervals define a
 dense coordinate space of exactly ``count(filter)`` positions.  Gathering the
 measure values once into that space (``gather``) and prefix-summing them
-(``prefix_sums``) turns every per-group sum into two subtractions — a group's
-intervals are mapped into filtered coordinates via ``interval_coverage`` (two
-``searchsorted`` probes per interval), and ``prefix[end] - prefix[start]``
-is the group's contribution.  Min/max use a segmented ``ufunc.reduceat`` over
-the same coordinates.  Cost is O(selected rows + intervals), independent of
-table width.
+(``prefix_sums``) turns every per-group sum into two subtractions — a
+grouping column's runs (its ``run_catalog``) are found and mapped into
+filtered coordinates by the filter's intervals (``probe_catalog``, two
+``searchsorted`` probes per filter interval), and ``prefix[end] -
+prefix[start]`` is a run's contribution.  Min/max use a segmented
+``ufunc.reduceat`` over the same coordinates.  Cost is O(selected rows +
+runs met), independent of table width.
 
 Measures are plain 1-D int64 or float64 arrays aligned with the (sorted)
 fact table's row order; they ride along through every physical reshaping
@@ -113,19 +114,44 @@ def gather(values: np.ndarray, starts: np.ndarray,
     return values[interval_positions(starts, ends)]
 
 
-def interval_coverage(fs: np.ndarray, fe: np.ndarray,
-                      xs: np.ndarray) -> np.ndarray:
-    """How many filter rows (intervals ``[fs, fe)``, sorted, disjoint) lie
-    strictly below each position in ``xs`` — the map from global row
-    coordinates into the dense filtered domain."""
-    fs = np.asarray(fs, dtype=np.int64)
-    fe = np.asarray(fe, dtype=np.int64)
-    xs = np.asarray(xs, dtype=np.int64)
-    pref = np.concatenate(([0], np.cumsum(fe - fs)))
-    i = np.searchsorted(fs, xs, side="right") - 1
-    i0 = np.maximum(i, 0)
-    inside = np.clip(xs - fs[i0], 0, fe[i0] - fs[i0])
-    return np.where(i >= 0, pref[i0] + inside, 0)
+def run_catalog(intervals: Sequence[Tuple[np.ndarray, np.ndarray]],
+                n_rows: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The run-length encoding of a column whose value bitmaps partition
+    its ``n_rows`` rows, from each rank's set-bit intervals
+    (``intervals[rank]``): the sorted run starts and each run's rank.  A
+    run ends where the next one starts, the last at ``n_rows``.  Starts
+    are int32 where the rows fit, ranks the narrowest unsigned type."""
+    sdt = np.int32 if n_rows < 2 ** 31 else np.int64
+    rdt = np.min_scalar_type(len(intervals) - 1)
+    starts = np.concatenate([s.astype(sdt) for s, _ in intervals])
+    ranks = np.concatenate([np.full(len(s), r, rdt)
+                            for r, (s, _) in enumerate(intervals)])
+    order = np.argsort(starts)
+    return starts[order], ranks[order]
+
+
+def probe_catalog(starts: np.ndarray, ranks: np.ndarray, n_rows: int,
+                  fs: np.ndarray, fe: np.ndarray):
+    """The runs of a ``run_catalog`` that the filter intervals ``[fs,
+    fe)`` (int64, sorted, disjoint, non-empty) meet, each clipped to its
+    interval and mapped into the filtered domain: ``(S, E, R)``, int64,
+    sorted by ``S``.  One ``searchsorted`` pair finds each interval's
+    first and last run, so the cost is O(F log N + runs met), whatever
+    the column's cardinality."""
+    first = np.searchsorted(starts, fs.astype(starts.dtype),
+                            side="right") - 1
+    stop = np.searchsorted(starts, fe.astype(starts.dtype), side="left")
+    met = stop - first
+    k = interval_positions(first, stop)
+    nxt = np.minimum(k + 1, len(starts) - 1)
+    run_e = np.where(k + 1 < len(starts), starts[nxt], n_rows)
+    lens = fe - fs
+    # global row x of interval j sits at x - shift[j] in filtered
+    # coordinates, shift[j] being fs[j] less the rows kept before it
+    shift = np.repeat(fs - (np.cumsum(lens) - lens), met)
+    S = np.maximum(starts[k], np.repeat(fs, met)) - shift
+    E = np.minimum(run_e, np.repeat(fe, met)) - shift
+    return S, E, ranks[k].astype(np.int64)
 
 
 def prefix_sums(fvals: np.ndarray) -> np.ndarray:
