@@ -1280,23 +1280,25 @@ def gpu_memory():
 
 
 def http_phase(torch, wl, lr, Dataset, d, bodies, sqls, want):
-    """The served store over HTTP, kernel path, on the default shard pool
-    of a service on the card (threads; on the CPU, where the default is a
-    forked process pool, threads are asked for): every statement cold (first after the open), cached (a result-LRU hit), in
+    """The served store over HTTP, kernel path, on the default shard
+    fan-out of a service on the card (in-process: each statement runs its
+    shards in turn in its own worker thread; on the CPU, where the default
+    is a forked process pool, ``shard_processes=0`` asks for the same):
+    every statement cold (first after the open), cached (a result-LRU hit), in
     its SQL form, again after ``/admin/invalidate`` (the service's result
     LRU is empty; the shards' own result LRUs answer) and warm (without
     ``HEAVY_TERMS``: a fresh ``ShardedIndex`` over the same shards swapped
     in, so every result is computed again with its operands already on
     the card); then one batch and ``/stats``.  Returns the cold answers
     and the launches of each pass."""
-    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.core import ShardedIndex
+    from repro_torch.core.shard import ShardProcessPool
     from repro_torch.serve.query_api import serve_in_thread
     t0 = time.perf_counter()
     ds = Dataset.open(str(d), mmap=True, device=DEVICE)
     pool = {} if DEVICE == "cuda" else {"shard_processes": 0}
     svc = ds.serve(backend="kernel", max_rows=SERVE_MAX_ROWS, **pool)
-    if not isinstance(svc._shard_pool, ThreadPoolExecutor):
+    if isinstance(svc._shard_pool, ShardProcessPool):
         raise AssertionError(f"http: the shard pool is "
                              f"{type(svc._shard_pool).__name__}")
     srv, port = serve_in_thread(svc)

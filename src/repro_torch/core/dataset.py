@@ -52,6 +52,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.kernels import _trace
 from repro_torch.kernels.ops import resolve_device
 from .expr import Expr
 from .index import WORD_ROWS, BitmapIndex, IndexBuilder
@@ -209,6 +210,13 @@ class Dataset:
 
         ``device`` is where queries run the kernel path (``"cuda"`` by
         default; raises, before any work, when CUDA is absent).
+
+        Spans (``kernels._trace``, off unless recording): ``build.sort``
+        (the column order, then the external merge and the permutation of
+        rows and measures), ``build.shard`` (the word-aligned cuts) and the
+        builders' ``build.encode`` and ``build.index``, each with its
+        ``rows``.  On the spilled path the merge streams into the builders,
+        so its time falls in ``build.shard`` or, unsharded, in none.
         """
         device = resolve_device(device)
         rows = np.asarray(rows)
@@ -218,24 +226,28 @@ class Dataset:
         if columns is not None and len(columns) != d:
             raise ValueError(
                 f"columns has {len(columns)} names for {d} columns")
-        if layout is not None:
-            decision = layout
-            cards = list(decision.cards) if decision.cards is not None \
-                else (list(cards) if cards is not None else _table_cards(rows))
-            order = list(decision.order) if decision.order is not None \
-                else None
-        else:
-            cards = list(cards) if cards is not None else _table_cards(rows)
-            if remap:
-                stats = LayoutStats()
-                for s in range(0, max(n, 1), chunk_rows):
-                    stats.observe(rows[s:s + chunk_rows])
-                decision = stats.decision(sort=sort, remap=True, cards=cards)
-                order = decision.order
+        with _trace.span("build.sort", rows=n):
+            if layout is not None:
+                decision = layout
+                cards = list(decision.cards) if decision.cards is not None \
+                    else (list(cards) if cards is not None
+                          else _table_cards(rows))
+                order = list(decision.order) if decision.order is not None \
+                    else None
             else:
-                order = cls._resolve_sort(sort, rows, cards, d)
-                decision = LayoutDecision(order=order, remaps=None,
-                                          cards=cards, n_rows=n)
+                cards = list(cards) if cards is not None \
+                    else _table_cards(rows)
+                if remap:
+                    stats = LayoutStats()
+                    for s in range(0, max(n, 1), chunk_rows):
+                        stats.observe(rows[s:s + chunk_rows])
+                    decision = stats.decision(sort=sort, remap=True,
+                                              cards=cards)
+                    order = decision.order
+                else:
+                    order = cls._resolve_sort(sort, rows, cards, d)
+                    decision = LayoutDecision(order=order, remaps=None,
+                                              cards=cards, n_rows=n)
         remaps = decision.remaps
         names = list(columns) if columns is not None else None
         if container is None:
@@ -267,14 +279,17 @@ class Dataset:
                        layout=decision, device=device)
 
         if order is not None:
-            perm = external_merge_sort_perm(rows, chunk_rows, order,
-                                            stats=sort_stats, remaps=remaps)
-            table = rows[perm]
+            with _trace.span("build.sort", rows=n):
+                perm = external_merge_sort_perm(rows, chunk_rows, order,
+                                                stats=sort_stats,
+                                                remaps=remaps)
+                table = rows[perm]
+                if measures is not None:
+                    # the sidecar rides the same permutation as the rows
+                    measures = {name: arr[perm]
+                                for name, arr in measures.items()}
         else:
             perm, table = None, rows
-        if measures is not None and perm is not None:
-            # the sidecar rides the same permutation as the fact rows
-            measures = {name: arr[perm] for name, arr in measures.items()}
         index = _build_from_chunks(
             (table[s:s + chunk_rows] for s in range(0, max(n, 1), chunk_rows)),
             n, cards, k, allocation, shards, partition_rows, names,
@@ -758,9 +773,10 @@ def _build_from_chunks(chunks: Iterable[np.ndarray], n_rows: int,
                        remaps: Optional[Sequence] = None,
                        measures: Optional[Dict] = None) -> AnyIndex:
     """Stream row chunks into one index — monolithic, or cut into
-    ``shards`` word-aligned row shards built by independent builders.
-    ``measures`` (flat arrays in the chunks' row order) attach to the
-    result, sliced along the same shard cuts."""
+    ``shards`` word-aligned row shards built by independent builders (the
+    span ``build.shard``, around the builders' own ``build.encode`` and
+    ``build.index``).  ``measures`` (flat arrays in the chunks' row order)
+    attach to the result, sliced along the same shard cuts."""
     def builder():
         return IndexBuilder(cards, k=k, allocation=allocation,
                             partition_rows=partition_rows,
@@ -768,24 +784,25 @@ def _build_from_chunks(chunks: Iterable[np.ndarray], n_rows: int,
                             remaps=remaps)
 
     if shards and shards > 1:
-        shard_rows = _aligned_rows(n_rows, shards)
-        done: List[BitmapIndex] = []
-        cur, filled = builder(), 0
-        for chunk in chunks:
-            chunk = np.asarray(chunk)
-            while len(chunk):
-                take = min(shard_rows - filled, len(chunk))
-                cur.append(chunk[:take])
-                filled += take
-                chunk = chunk[take:]
-                if filled == shard_rows:
-                    done.append(cur.finish())
-                    cur, filled = builder(), 0
-        if filled or not done:
-            done.append(cur.finish())
-        else:
-            cur.abort()
-        index: AnyIndex = ShardedIndex(done, column_names=names)
+        with _trace.span("build.shard", rows=n_rows, shards=shards):
+            shard_rows = _aligned_rows(n_rows, shards)
+            done: List[BitmapIndex] = []
+            cur, filled = builder(), 0
+            for chunk in chunks:
+                chunk = np.asarray(chunk)
+                while len(chunk):
+                    take = min(shard_rows - filled, len(chunk))
+                    cur.append(chunk[:take])
+                    filled += take
+                    chunk = chunk[take:]
+                    if filled == shard_rows:
+                        done.append(cur.finish())
+                        cur, filled = builder(), 0
+            if filled or not done:
+                done.append(cur.finish())
+            else:
+                cur.abort()
+            index: AnyIndex = ShardedIndex(done, column_names=names)
     else:
         b = builder()
         for chunk in chunks:

@@ -22,6 +22,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.kernels import _trace
 from .encoding import ColumnEncoder, choose_k
 from .ewah import EWAH, and_many
 
@@ -275,23 +276,31 @@ class IndexBuilder:
         (Algorithm 3: scatter (row, bitmap) pairs, group, append runs).
 
         In store mode the partition's bitmaps go straight to the writer and
-        are dropped — the builder never holds more than this one partition."""
+        are dropped — the builder never holds more than this one partition.
+
+        Each column is the span ``build.encode`` (its k-of-N codes) and then
+        ``build.index`` (its bitmaps); the counters ``index.words.literal``
+        and ``index.words.fill`` add up the literal and marker words of its
+        run-list bitmaps."""
         rows_part = len(part)
         part_sink: List[List[EWAH]] = []
         for c, col in enumerate(self.columns):
             enc = col.encoder
-            codes = enc.codes(part[:, c])  # (rows_part, k)
-            rows = np.repeat(np.arange(rows_part, dtype=np.int64), enc.k)
-            flat = codes.reshape(-1).astype(np.int64)
-            order = np.lexsort((rows, flat))
-            flat_s, rows_s = flat[order], rows[order]
-            # group boundaries per bitmap id
-            bms: List[EWAH] = []
-            idx = np.searchsorted(flat_s, np.arange(enc.L + 1))
-            for b in range(enc.L):
-                pos = rows_s[idx[b]: idx[b + 1]]
-                bms.append(EWAH.from_positions(pos, rows_part,
-                                               container=self.container))
+            with _trace.span("build.encode", rows=rows_part, col=c):
+                codes = enc.codes(part[:, c])  # (rows_part, k)
+            with _trace.span("build.index", rows=rows_part, col=c):
+                rows = np.repeat(np.arange(rows_part, dtype=np.int64), enc.k)
+                flat = codes.reshape(-1).astype(np.int64)
+                order = np.lexsort((rows, flat))
+                flat_s, rows_s = flat[order], rows[order]
+                # group boundaries per bitmap id
+                bms: List[EWAH] = []
+                idx = np.searchsorted(flat_s, np.arange(enc.L + 1))
+                for b in range(enc.L):
+                    pos = rows_s[idx[b]: idx[b + 1]]
+                    bms.append(EWAH.from_positions(pos, rows_part,
+                                                   container=self.container))
+                _count_words(bms)
             if self._writer is None:
                 col.bitmaps.append(bms)
                 col.invalidate_sizes()
@@ -300,6 +309,20 @@ class IndexBuilder:
         if self._writer is not None:
             self._writer.add_partition(part_sink, rows_part)
         self._bounds.append(self._bounds[-1] + rows_part)
+
+
+def _count_words(bms: Sequence[EWAH]) -> None:
+    """Bump the build's word counters by the literal and the marker words
+    of the run-list bitmaps of ``bms``; container-backed ones are left
+    out."""
+    literal = fill = 0
+    for bm in bms:
+        if bm._cont is None:
+            lits = len(bm.runlist().lits)
+            literal += lits
+            fill += bm.size_words - lits
+    _trace.count("index.words.literal", literal)
+    _trace.count("index.words.fill", fill)
 
 
 @dataclass

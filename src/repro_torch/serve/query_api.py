@@ -94,11 +94,15 @@ plain versions; naming CUDA without a card raises, and a failed build or
 launch fails the statement (there is no fallback to ``ewah``).  The fork
 rule of ``repro_torch.core.shard`` decides the default shard pool: forked
 ``ShardProcessPool`` workers run the host EWAH path on the CPU and never
-call CUDA, so a service on a CUDA device fans its shards out on a thread
-pool (the kernel path, on the card); only a store-backed sharded service
-on ``device="cpu"`` defaults to the process pool, as the reference's does.
-An explicit ``shard_processes`` > 0 on CUDA still forks, and there ``auto``
-degrades to ``ewah`` and ``kernel`` raises ``ForkSafetyError``.
+call CUDA, so a service on a CUDA device keeps its shards in-process (the
+kernel path, on the card); only a store-backed sharded service on
+``device="cpu"`` defaults to the process pool, as the reference's does.
+In-process, a statement runs its shards one after another in its own
+worker thread: the host's share of a shard task (planning, words to runs,
+the group-by probes) holds the GIL and the device's share takes
+microseconds, so shard threads would only take turns and hand the GIL
+over.  An explicit ``shard_processes`` > 0 on CUDA still forks, and there
+``auto`` degrades to ``ewah`` and ``kernel`` raises ``ForkSafetyError``.
 
 Run standalone against a synthetic sorted table:
     PYTHONPATH=src python -m repro_torch.serve.query_api --port 8321 --shards 4
@@ -461,7 +465,9 @@ class QueryService:
     *generation* counter, so a rebuilt index can never serve stale rows).
     The result cache is size-aware: eviction honours both an entry cap and a
     byte budget over the cached EWAH payloads.  Sharded indexes execute
-    shard-parallel on a second, dedicated pool.
+    shard-parallel on a forked process pool where the fork rule picks one,
+    and otherwise one shard after another in the statement's own worker
+    thread (the module docstring says why).
 
     Statements run their kernel path on ``device`` (``"cuda"`` by default;
     raises when CUDA is absent).  The result LRU budgets host results only.
@@ -514,9 +520,10 @@ class QueryService:
         # (the default) picks the process pool automatically for sharded
         # indexes opened from a store directory on the CPU — there the
         # workers mmap-open the shard files themselves, so no fork-COW of
-        # the parent heap is involved — and a thread pool everywhere else,
-        # on a CUDA device too: forked workers never reach the card.
-        # ``0`` forces the thread pool.
+        # the parent heap is involved — and none everywhere else, on a CUDA
+        # device too (forked workers never reach the card): a statement
+        # then runs its shards in its own worker thread.  ``0`` forces
+        # that.
         self.shard_processes = shard_processes if shard_processes is None \
             else int(shard_processes)
         self._shard_pool = self._make_shard_pool()
@@ -574,6 +581,8 @@ class QueryService:
         return 0
 
     def _make_shard_pool(self):
+        """The shard fan-out's process pool, or None: each statement then
+        runs its shards one after another in its own worker thread."""
         procs = self._resolve_shard_processes()
         if procs > 0 and isinstance(self.index, ShardedIndex):
             from repro_torch.core.shard import ShardProcessPool
@@ -581,8 +590,11 @@ class QueryService:
             # themselves instead of depending on fork-COW of the parent heap
             return ShardProcessPool(self.index, workers=procs,
                                     index_dir=self.index_dir)
-        return ThreadPoolExecutor(max_workers=self.pool_workers,
-                                  thread_name_prefix="shard")
+        return None
+
+    def _close_shard_pool(self) -> None:
+        if self._shard_pool is not None:
+            self._shard_pool.shutdown(wait=False)
 
     # -- lifecycle ---------------------------------------------------------
     def set_index(self, index) -> None:
@@ -599,7 +611,7 @@ class QueryService:
         self.index = index
         self._generation += 1
         self.cache.clear()
-        self._shard_pool.shutdown(wait=False)
+        self._close_shard_pool()
         self._shard_pool = self._make_shard_pool()
 
     def replace_shard(self, i: int, shard) -> None:
@@ -757,7 +769,7 @@ class QueryService:
         if self._live_owned:
             self.index.close()  # flush + close the WAL we opened
         self._pool.shutdown(wait=False)
-        self._shard_pool.shutdown(wait=False)
+        self._close_shard_pool()
 
     # -- live ingest ---------------------------------------------------------
     def enable_live(self):

@@ -307,10 +307,10 @@ def test_bitpack_reads_other_dtypes_as_nonzero(cuda_device):
                          ids=["defaults", "kernel"])
 def test_served_store_defaults_run_logical_reduce_on_the_card(
         cuda_device, tmp_path, serve_kwargs):
-    """``Dataset.open(dir).serve()`` of a sharded store fans its shards out
-    on threads on the card (a forked process pool would run host EWAH) and
-    its statements launch the fused kernel."""
-    from concurrent.futures import ThreadPoolExecutor
+    """``Dataset.open(dir).serve()`` of a sharded store runs its shards
+    in-process on the card, each statement's in its own worker thread (a
+    forked process pool would run host EWAH), and its statements launch
+    the fused kernel."""
     from repro_torch.core import Dataset
     rng = np.random.default_rng(3)
     rows = rng.integers(0, 16, size=(1 << 16, 2))
@@ -319,7 +319,7 @@ def test_served_store_defaults_run_logical_reduce_on_the_card(
     svc = Dataset.open(str(tmp_path / "store")).serve(**serve_kwargs)
     try:
         assert svc.device.type == "cuda"
-        assert isinstance(svc._shard_pool, ThreadPoolExecutor)
+        assert svc._shard_pool is None
         where = {"op": "and", "args": [
             {"op": "in", "col": "c0", "values": [1, 2, 3, 4, 5]},
             {"op": "in", "col": "c1", "values": [0, 7, 9]}]}
