@@ -37,6 +37,8 @@ import numpy as np
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
+from repro_torch.kernels import _trace
+
 WORD_BITS = 32
 WORD_DTYPE = np.uint32
 ALL_ONES = np.uint32(0xFFFFFFFF)
@@ -159,9 +161,31 @@ class EWAH:
     # -- construction -----------------------------------------------------
     @classmethod
     def from_words(cls, words: np.ndarray, n_bits: int) -> "EWAH":
-        """Compress a dense uint32 word array."""
-        words = np.asarray(words, dtype=WORD_DTYPE)
-        return cls(_emit(_split_literal(words)), n_bits)
+        """Compress a dense uint32 word array.
+
+        Whole-array passes, no per-segment loop: each word is classified
+        clean-zero / clean-one / literal, the kind changes bound the
+        canonical ``RunList``'s intervals, and ``_rl_emit`` writes the
+        marker stream — word for word ``_emit(_split_literal(words))``.
+        The run-list stays memoized on the result, so its first logical
+        op, ``count()`` or ``set_intervals()`` decodes nothing.
+        """
+        words = np.ascontiguousarray(words, dtype=WORD_DTYPE)
+        n = len(words)
+        if n == 0:
+            return _empty_ewah(n_bits)
+        one = words == ALL_ONES
+        lit = ~(one | (words == 0))
+        # 0, 1, 2: KIND_CLEAN0, KIND_CLEAN1, KIND_LIT
+        kind = one.view(np.int8) + (lit.view(np.int8) << 1)
+        starts = np.flatnonzero(kind[1:] != kind[:-1]) + 1
+        bounds = np.empty(len(starts) + 2, np.int64)
+        bounds[0], bounds[1:-1], bounds[-1] = 0, starts, n
+        kinds = kind[bounds[:-1]]
+        lit_len = np.where(kinds == KIND_LIT, np.diff(bounds), 0)
+        lit_starts = np.cumsum(lit_len) - lit_len
+        _trace.count("ewah.from_words.intervals", len(kinds))
+        return _rl_wrap(RunList(bounds, kinds, lit_starts, words[lit]), n_bits)
 
     @classmethod
     def from_bool(cls, bits: np.ndarray) -> "EWAH":
@@ -288,6 +312,7 @@ class EWAH:
                 from .containers import containers_to_runlist
                 self._rl = containers_to_runlist(self._cont)
             else:
+                _trace.count("ewah.runlist.decodes")
                 self._rl = _decode_runlist(self._words)
         return self._rl
 
