@@ -29,9 +29,9 @@ its own operand cache.  ``serve()`` hands the dataset's device on to the
 
 Statements, not just filters: ``query()`` returns a small immutable builder
 whose terminal methods compile to aggregation plan nodes (``PCount`` /
-``PGroupCount``) evaluated **in the compressed domain** — counts are
-memoized EWAH popcounts, group-by intersects each value bitmap with the
-shared filter by run-interval arithmetic, and on a sharded index every
+``PAgg`` / ``PGroupAgg``) evaluated **in the compressed domain** — counts
+are memoized EWAH popcounts, a group-by probes each grouping column's run
+catalog with the filter's run intervals, and on a sharded index every
 shard returns a partial count (vector) that the coordinator sums.  No
 aggregate ever materializes a global result bitmap, mirroring how
 Lemire/Kaser/Aouiche and the Roaring line evaluate aggregate workloads over

@@ -45,8 +45,7 @@ from .ewah import EWAH, and_many, or_many
 from .expr import Expr
 from .index import BitmapIndex
 from .planner import (PAgg, PAnd, PBitmap, PConst, PCount, PDiff,
-                      PGroupAgg, PGroupCount, PNot, POr, PPinned, PlanNode,
-                      Planner, plan)
+                      PGroupAgg, PNot, POr, PPinned, PlanNode)
 
 # the historical static threshold, kept as the uncalibrated fallback; the
 # live value comes from ``repro_torch.core.cost_model`` (measured crossover when a
@@ -227,87 +226,6 @@ class Executor:
         with _trace.span("exec.filter"):
             return self._run(child).count()
 
-    # a group bitmap whose literal pool would expand to far more intervals
-    # than the filter exposes is cheaper to intersect pairwise: past this
-    # expansion-to-filter-intervals ratio the run-aligned
-    # ``EWAH.and_count`` beats contributing the (huge) expansion to the
-    # batched coverage pass — per query, cold or warm
-    LIT_INTERVAL_CUTOFF = 4
-
-    def run_group_count(self, node: PGroupCount) -> np.ndarray:
-        """Per-value counts of one column under the node's filter.
-
-        Without a filter each group is its bitmap's memoized popcount.
-        With one, the filter evaluates once (shared across the whole
-        fan-out through the operand cache) and every group intersects it in
-        the compressed domain, by one of two kernels: run-dominated bitmaps
-        (the sorted-table case) contribute their set-bit intervals —
-        clean-one runs plus literal expansions, memoized per bitmap — to a
-        batch scored against the filter's interval coverage function in two
-        vectorized ``searchsorted`` passes over all groups at once;
-        literal-heavy bitmaps, whose interval expansion would approach one
-        interval per set bit, use the pairwise ``EWAH.and_count`` (aligned
-        run-lists, popcount without materializing the AND).  Nothing is
-        decompressed to rows and no result bitmap exists, per group or
-        globally.
-        """
-        out = np.zeros(len(node.groups), dtype=np.int64)
-        filt = node.filter
-        if isinstance(filt, PConst):
-            if not filt.value:
-                return out
-            filt = None
-        if filt is None:
-            for g, gn in enumerate(node.groups):
-                if isinstance(gn, PConst):
-                    out[g] = self.index.n_rows if gn.value else 0
-                else:
-                    out[g] = self._run(gn).count()
-            return out
-        with _trace.span("exec.filter"):
-            fbm = self._run(filt)
-            # the filter always takes the interval view, even when
-            # literal-heavy: its expansion is paid once (memoized on the
-            # EWAH, which the subexpression cache keeps alive) and the
-            # per-query coverage passes scan *group* intervals with only a
-            # log factor in the filter's interval count — whereas escaping
-            # a fragmented filter to pairwise ``and_count`` costs O(filter
-            # runs) per group, which is catastrophic for high-cardinality
-            # group-bys
-            fs, fe = fbm.set_intervals()
-        if len(fs) == 0:
-            return out
-        starts, ends, gids = [], [], []
-        pair_budget = self.LIT_INTERVAL_CUTOFF * (len(fs) + 32)
-        with _trace.span("groupby.catalog", col=node.col):
-            for g, gn in enumerate(node.groups):
-                gbm = self._run(gn)
-                rl = gbm.runlist()
-                # 32 * literal words bounds the group's expanded interval
-                # count
-                if 32 * len(rl.lits) > pair_budget + rl.n_intervals:
-                    out[g] = fbm.and_count(gbm)
-                    continue
-                s, e = gbm.set_intervals()
-                if len(s):
-                    starts.append(s)
-                    ends.append(e)
-                    gids.append(np.full(len(s), g, dtype=np.int64))
-            if starts:
-                S = np.concatenate(starts)
-                E = np.concatenate(ends)
-                G = np.concatenate(gids)
-                w = (_interval_coverage(fs, fe, E)
-                     - _interval_coverage(fs, fe, S))
-        if starts:
-            with _trace.span("groupby.cells"):
-                out += np.bincount(G, weights=w, minlength=len(
-                    node.groups)).astype(np.int64)
-        # a group meets the filter exactly when its count is not zero
-        _trace.count("groupby.value_bitmaps", len(node.groups))
-        _trace.count("groupby.value_bitmaps_met", int(np.count_nonzero(out)))
-        return out
-
     def _filter_intervals(self, filt: Optional[PlanNode]):
         """A filter node's set-bit intervals, ``None`` filters covering all
         rows; returns empty arrays for an all-false filter."""
@@ -486,6 +404,35 @@ def _shard_caches(index, cache: Optional[Dict]) -> Optional[List[Dict]]:
             for i in range(index.n_shards)]
 
 
+# the method of a sharded or live index that runs each statement kind
+_INDEX_METHODS = {"expr": "execute", "count": "count",
+                  "gcount": "group_count", "agg": "agg", "gagg": "group_agg"}
+
+
+def _run_statement(index, task, backend: Backend, optimize: bool,
+                   cache: Optional[Dict], pool, device):
+    """One statement task (see ``repro_torch.core.shard.run_shard_task``)
+    on any index: a ``LiveIndex`` or ``ShardedIndex`` through its method of
+    the task's kind (per-shard partials merged at the coordinator, a
+    caller's ``cache`` split per shard), a monolithic ``BitmapIndex`` as
+    one shard."""
+    # local: shard and ingest import this module
+    from .shard import ShardedIndex, run_shard_task
+    from .ingest import LiveIndex
+    method = _INDEX_METHODS[task[0]]
+    if isinstance(index, LiveIndex):
+        return getattr(index, method)(*task[1:], backend=backend,
+                                      optimize=optimize, pool=pool,
+                                      device=device)
+    if isinstance(index, ShardedIndex):
+        return getattr(index, method)(*task[1:], backend=backend,
+                                      optimize=optimize,
+                                      caches=_shard_caches(index, cache),
+                                      pool=pool, device=device)
+    return run_shard_task(index, task, backend=backend, optimize=optimize,
+                          cache=cache, device=device)
+
+
 def execute(index, e: Union[Expr, PlanNode],
             backend: Backend = "auto", optimize: bool = True,
             cache: Optional[Dict] = None, pool=None, device="cuda") -> EWAH:
@@ -496,18 +443,8 @@ def execute(index, e: Union[Expr, PlanNode],
     concurrently when ``pool`` (a ``concurrent.futures`` executor or a
     ``ShardProcessPool``) is given — then concatenates the EWAH results.
     """
-    from .shard import ShardedIndex  # local: shard imports this module
-    from .ingest import LiveIndex   # local: ingest imports this module
-    if isinstance(index, LiveIndex):
-        return index.execute(e, backend=backend, optimize=optimize,
-                             pool=pool, device=device)
-    if isinstance(index, ShardedIndex):
-        return index.execute(e, backend=backend, optimize=optimize,
-                             caches=_shard_caches(index, cache), pool=pool,
-                             device=device)
-    node = plan(index, e, optimize=optimize) if isinstance(e, Expr) else e
-    return Executor(index, backend=backend, cache=cache,
-                    device=device).run(node)
+    return _run_statement(index, ("expr", e), backend, optimize, cache, pool,
+                          device)
 
 
 def execute_rows(index, e: Union[Expr, PlanNode],
@@ -518,18 +455,6 @@ def execute_rows(index, e: Union[Expr, PlanNode],
                    device=device).set_bits()
 
 
-def _interval_coverage(fs: np.ndarray, fe: np.ndarray,
-                       xs: np.ndarray) -> np.ndarray:
-    """Covered length below each ``x`` of the sorted disjoint intervals
-    ``[fs, fe)`` — the filter's prefix-popcount function, evaluated for all
-    group-interval endpoints in one ``searchsorted`` pass."""
-    pref = np.concatenate(([0], np.cumsum(fe - fs)))
-    i = np.searchsorted(fs, xs, side="right") - 1
-    i0 = np.maximum(i, 0)
-    inside = np.clip(xs - fs[i0], 0, fe[i0] - fs[i0])
-    return np.where(i >= 0, pref[i0] + inside, 0)
-
-
 def execute_count(index, e: Optional[Expr] = None,
                   backend: Backend = "auto", optimize: bool = True,
                   cache: Optional[Dict] = None, pool=None,
@@ -537,18 +462,8 @@ def execute_count(index, e: Optional[Expr] = None,
     """COUNT(*) of a filter (``e=None`` counts all rows), computed in the
     compressed domain — on a ``ShardedIndex`` per-shard partial counts are
     summed at the coordinator, never a concatenated result bitmap."""
-    from .shard import ShardedIndex
-    from .ingest import LiveIndex
-    if isinstance(index, LiveIndex):
-        return index.count(e, backend=backend, optimize=optimize, pool=pool,
-                           device=device)
-    if isinstance(index, ShardedIndex):
-        return index.count(e, backend=backend, optimize=optimize,
-                           caches=_shard_caches(index, cache), pool=pool,
-                           device=device)
-    node = Planner(index, optimize=optimize).plan_count(e)
-    return Executor(index, backend=backend, cache=cache,
-                    device=device).run_count(node)
+    return _run_statement(index, ("count", e), backend, optimize, cache,
+                          pool, device)
 
 
 def execute_group_count(index, col, e: Optional[Expr] = None,
@@ -556,20 +471,11 @@ def execute_group_count(index, col, e: Optional[Expr] = None,
                         cache: Optional[Dict] = None, pool=None,
                         device="cuda") -> np.ndarray:
     """GROUP BY ``col`` COUNT(*) under filter ``e`` -> int64 array of
-    length ``card(col)`` (a ``np.bincount``-shaped result).  Sharded
+    length ``card(col)`` (a ``np.bincount``-shaped result): the ``counts``
+    of the one-column group-by, from the column's run catalog.  Sharded
     indexes merge per-shard partial count vectors by summation."""
-    from .shard import ShardedIndex
-    from .ingest import LiveIndex
-    if isinstance(index, LiveIndex):
-        return index.group_count(col, e, backend=backend, optimize=optimize,
-                                 pool=pool, device=device)
-    if isinstance(index, ShardedIndex):
-        return index.group_count(col, e, backend=backend, optimize=optimize,
-                                 caches=_shard_caches(index, cache),
-                                 pool=pool, device=device)
-    node = Planner(index, optimize=optimize).plan_group_count(col, e)
-    return Executor(index, backend=backend, cache=cache,
-                    device=device).run_group_count(node)
+    return _run_statement(index, ("gcount", col, e), backend, optimize,
+                          cache, pool, device)
 
 
 def execute_agg(index, measure: str, e: Optional[Expr] = None,
@@ -579,18 +485,8 @@ def execute_agg(index, measure: str, e: Optional[Expr] = None,
     (``e=None`` aggregates all rows), computed by interval-slicing the
     measure sidecar — sharded indexes merge per-shard partial tuples at
     the coordinator (``repro_torch.core.measures.merge_scalar_aggs``)."""
-    from .shard import ShardedIndex
-    from .ingest import LiveIndex
-    if isinstance(index, LiveIndex):
-        return index.agg(measure, e, backend=backend, optimize=optimize,
-                         pool=pool, device=device)
-    if isinstance(index, ShardedIndex):
-        return index.agg(measure, e, backend=backend, optimize=optimize,
-                         caches=_shard_caches(index, cache), pool=pool,
-                         device=device)
-    node = Planner(index, optimize=optimize).plan_agg(measure, e)
-    return Executor(index, backend=backend, cache=cache,
-                    device=device).run_agg(node)
+    return _run_statement(index, ("agg", measure, e), backend, optimize,
+                          cache, pool, device)
 
 
 def execute_group_agg(index, measure: Optional[str], cols,
@@ -603,19 +499,8 @@ def execute_group_agg(index, measure: Optional[str], cols,
     partial-aggregate dict of ``Executor.run_group_agg``; project it onto
     one op with ``repro_torch.core.measures.finalize_group``.  Sharded
     indexes merge per-shard partials elementwise."""
-    from .shard import ShardedIndex
-    from .ingest import LiveIndex
-    if isinstance(index, LiveIndex):
-        return index.group_agg(measure, cols, e, backend=backend,
-                               optimize=optimize, pool=pool, device=device)
-    if isinstance(index, ShardedIndex):
-        return index.group_agg(measure, cols, e, backend=backend,
-                               optimize=optimize,
-                               caches=_shard_caches(index, cache),
-                               pool=pool, device=device)
-    node = Planner(index, optimize=optimize).plan_group_agg(measure, cols, e)
-    return Executor(index, backend=backend, cache=cache,
-                    device=device).run_group_agg(node)
+    return _run_statement(index, ("gagg", measure, cols, e), backend,
+                          optimize, cache, pool, device)
 
 
 class QueryBatch:
@@ -634,16 +519,10 @@ class QueryBatch:
     def execute(self, index, backend: Backend = "auto",
                 optimize: bool = True, pool=None,
                 device="cuda") -> List[EWAH]:
-        from .shard import ShardedIndex
-        if isinstance(index, ShardedIndex):
-            # one operand cache per shard, shared across the whole batch
-            caches: List[Dict] = [{} for _ in index.shards]
-            return [index.execute(e, backend=backend, optimize=optimize,
-                                  caches=caches, pool=pool, device=device)
-                    for e in self.exprs]
-        plans = [plan(index, e, optimize=optimize) for e in self.exprs]
-        ex = Executor(index, backend=backend, cache={}, device=device)
-        return [ex.run(p) for p in plans]
+        cache: Dict = {}  # one operand cache (split per shard) per batch
+        return [execute(index, e, backend=backend, optimize=optimize,
+                        cache=cache, pool=pool, device=device)
+                for e in self.exprs]
 
     def execute_rows(self, index, backend: Backend = "auto",
                      optimize: bool = True, pool=None,

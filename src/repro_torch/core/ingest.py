@@ -15,13 +15,14 @@ bitmap:
   (the predicate's result bitmap ORs into the tombstone); nothing is
   rewritten.
 * ``LiveIndex`` — the read view ``(base ⊔ delta) AND NOT tombstones``.
-  Count / group-by / top-k stay compressed-domain across the merge:
-  per-shard partial counts (vectors) come from base and delta
-  independently, with tombstone popcounts subtracted via the run-aligned
-  ``EWAH.and_count`` — no global result bitmap, mirroring how the base
-  executes.  Delta rows occupy the global id range starting at the base's
-  next 32-bit word boundary, so layer results concatenate *exactly* (the
-  phantom gap rows are never set).
+  Every read stays compressed-domain across the merge: each base shard and
+  the delta run the statement under their effective filter (the filter's
+  result less the layer's tombstone, pinned into the plan) and the
+  partials merge as the base's shards' do — no global result bitmap for
+  an aggregate, mirroring how the base executes.  Delta rows occupy the
+  global id range starting at the base's next 32-bit word boundary, so
+  layer results concatenate *exactly* (the phantom gap rows are never
+  set).
 * write-ahead log — every mutation is durably framed (CRC-checked, see
   ``repro_torch.core.wal``) *before* it touches memory, so a crashed
   process replays to its exact pre-crash state — bit-identical bitmaps —
@@ -55,10 +56,9 @@ from . import measures as _ms
 from . import wal as walmod
 from .ewah import EWAH, _empty_ewah
 from .expr import Expr, canonical_key
-from .index import (BitmapIndex, ColumnIndex, IndexBuilder, WORD_ROWS,
-                    concat_bitmaps)
-from .planner import PAgg, PGroupAgg, PGroupCount, Planner, PPinned
-from .shard import ShardedIndex
+from .index import BitmapIndex, ColumnIndex, IndexBuilder, WORD_ROWS
+from .planner import PPinned
+from .shard import ShardedIndex, merge_partials, run_shard_task
 
 DELTA_PARTITION_ROWS = 4096
 
@@ -435,8 +435,8 @@ class LiveIndex:
     def _apply_delete(self, e: Expr) -> int:
         removed = 0
         if self.base.n_rows:
-            for i, p in enumerate(self.base.execute_per_shard(
-                    e, device=self.device)):
+            for i, p in enumerate(self.base.partials(
+                    ("expr", e), device=self.device)):
                 t = self._tombs[i]
                 if t is None:
                     if p.count():
@@ -446,8 +446,8 @@ class LiveIndex:
                     removed += p.count() - p.and_count(t)
                     self._tombs[i] = t | p
         if self.delta.n_rows:
-            from .executor import execute as _execute
-            dres = _execute(self.delta.index(), e, device=self.device)
+            dres = run_shard_task(self.delta.index(), ("expr", e),
+                                  device=self.device)
             dt = self._dtomb.pad_to(self.delta.n_rows) \
                 if self._dtomb is not None else None
             if dt is None:
@@ -486,13 +486,12 @@ class LiveIndex:
         keying by the snapshotted version keeps a read racing an append
         from filing the old index's result under the new version.
         """
-        from .executor import execute as _execute
         didx, dver = dsnap
         key = (dver, backend, bool(optimize), canonical_key(e))
         hit = self._dcache.get(key)
         if hit is None:
-            hit = _execute(didx, e, backend=backend, optimize=optimize,
-                           device=device)
+            hit = run_shard_task(didx, ("expr", e), backend=backend,
+                                 optimize=optimize, device=device)
             if len(self._dcache) >= DELTA_CACHE_ENTRIES:
                 self._dcache.clear()
             self._dcache[key] = hit
@@ -500,6 +499,48 @@ class LiveIndex:
 
     def _device(self, device: Optional[Device]) -> torch.device:
         return self.device if device is None else resolve_device(device)
+
+    def _partials(self, task, backend: str, optimize: bool, pool,
+                  device: Optional[Device]) -> List:
+        """Per-layer partials of one statement task whose filter comes
+        last, in row order, for ``merge_partials``.
+
+        One snapshot serves every layer.  A base with no tombstone runs
+        the task through ``ShardedIndex.partials`` (its shard LRUs).
+        Otherwise each non-empty shard runs it under its effective filter
+        — the filter's per-shard result (LRU-cached) less the shard's
+        tombstone — pinned into its plan; the delta does the same with its
+        memoized filter result (``_delta_result``) and its tombstone.  A
+        result bitmap's last base part is padded to the word boundary where
+        the delta's row ids start."""
+        e = task[-1]
+        if e is not None and not isinstance(e, Expr):
+            raise TypeError(f"LiveIndex statements take an Expr filter "
+                            f"(each layer plans it), got {e!r}")
+        device = self._device(device)
+        base, tombs, dsnap, dn, dt = self._snapshot()
+        parts: List = []
+        if base.n_rows:
+            if all(t is None for t in tombs):
+                parts = base.partials(task, backend, optimize, pool=pool,
+                                      device=device)
+            else:
+                fparts = base.partials(
+                    ("expr", e), backend, optimize, pool=pool,
+                    device=device) if e is not None else [None] * len(tombs)
+                parts = [run_shard_task(sh, _pinned(task, fp, t), backend,
+                                        optimize, device=device)
+                         for sh, t, fp in zip(base.shards, tombs, fparts)
+                         if sh.n_rows]
+        if dsnap[0] is not None:
+            gap = _align32(base.n_rows) - base.n_rows
+            if task[0] == "expr" and parts and gap:
+                parts[-1] = parts[-1].pad_to(parts[-1].n_bits + gap)
+            fp = self._delta_result(dsnap, e, backend, optimize, device) \
+                if e is not None else None
+            parts.append(run_shard_task(dsnap[0], _pinned(task, fp, dt),
+                                        backend, optimize, device=device))
+        return parts
 
     def execute(self, e, backend: str = "auto", optimize: bool = True,
                 pool=None, device: Optional[Device] = None) -> EWAH:
@@ -509,227 +550,71 @@ class LiveIndex:
         if not isinstance(e, Expr):
             raise TypeError("LiveIndex executes Expr trees (each layer "
                             "plans independently); got a plan node")
-        device = self._device(device)
-        base, tombs, dsnap, dn, dt = self._snapshot()
-        parts: List[EWAH] = []
-        if base.n_rows:
-            for p, t in zip(base.execute_per_shard(e, backend=backend,
-                                                   optimize=optimize,
-                                                   pool=pool, device=device),
-                            tombs):
-                parts.append(p.andnot(t) if t is not None else p)
-        if dsnap[0] is not None:
-            dres = self._delta_result(dsnap, e, backend, optimize, device)
-            if dt is not None:
-                dres = dres.andnot(dt)
-            gap = _align32(base.n_rows) - base.n_rows
-            if parts and gap:
-                # pad the base's ragged tail so delta ids start word-aligned
-                parts[-1] = parts[-1].pad_to(parts[-1].n_bits + gap)
-            parts.append(dres)
-        if not parts:
-            return _empty_ewah(0)
-        return parts[0] if len(parts) == 1 else concat_bitmaps(parts)
+        parts = self._partials(("expr", e), backend, optimize, pool, device)
+        return merge_partials("expr", parts) if parts else _empty_ewah(0)
 
     def count(self, e: Optional[Expr] = None, backend: str = "auto",
               optimize: bool = True, pool=None,
               device: Optional[Device] = None) -> int:
-        """COUNT(*) under ``e`` — per-layer compressed-domain popcounts with
-        tombstone overlaps subtracted (``count - and_count(tombstone)``);
-        no result bitmap ever exists."""
-        device = self._device(device)
-        base, tombs, dsnap, dn, dt = self._snapshot()
+        """COUNT(*) under ``e`` — the compressed-domain popcounts of each
+        layer's filter result less its tombstone (the base's results from
+        the shard LRUs, as ``execute``'s); no result bitmap of the whole
+        view ever exists.  ``e=None`` counts from the tombstones alone."""
         if e is None:
+            base, tombs, dsnap, dn, dt = self._snapshot()
             dead = sum(t.count() for t in tombs if t is not None)
             return base.n_rows - dead + dn - (dt.count() if dt else 0)
-        total = 0
-        if base.n_rows:
-            for p, t in zip(base.execute_per_shard(e, backend=backend,
-                                                   optimize=optimize,
-                                                   pool=pool, device=device),
-                            tombs):
-                total += p.count() - (p.and_count(t) if t is not None else 0)
-        if dsnap[0] is not None:
-            dres = self._delta_result(dsnap, e, backend, optimize, device)
-            total += dres.count() - (dres.and_count(dt) if dt is not None
-                                     else 0)
-        return total
+        return merge_partials("count", [p.count() for p in self._partials(
+            ("expr", e), backend, optimize, pool, device)])
 
     def group_count(self, col, e: Optional[Expr] = None,
                     backend: str = "auto", optimize: bool = True,
                     pool=None, device: Optional[Device] = None) -> np.ndarray:
-        """GROUP BY ``col`` COUNT(*) under ``e``, compressed-domain across
-        the base+delta merge: per-shard partial vectors from both layers
-        are summed, with tombstones folded into each shard's effective
-        filter (pinned into the plan as an already-evaluated bitmap)."""
-        from .executor import Executor, execute_group_count as _egc
-        device = self._device(device)
-        base, tombs, dsnap, dn, dt = self._snapshot()
-        didx = dsnap[0]
-        c = base.resolve_column(col)
-        out = np.zeros(base.card(c), dtype=np.int64)
-        if base.n_rows:
-            if all(t is None for t in tombs):
-                out += base.group_count(c, e, backend=backend,
-                                        optimize=optimize, pool=pool,
-                                        device=device)
-            else:
-                fparts = base.execute_per_shard(
-                    e, backend=backend, optimize=optimize, pool=pool,
-                    device=device) \
-                    if e is not None else [None] * len(tombs)
-                for sh, t, fp in zip(base.shards, tombs, fparts):
-                    if not sh.n_rows:
-                        continue
-                    planner = Planner(sh, optimize=optimize)
-                    if t is None and fp is None:
-                        node = planner.plan_group_count(c, None)
-                    else:
-                        if t is None:
-                            eff = fp
-                        elif fp is None:
-                            eff = ~t
-                        else:
-                            eff = fp.andnot(t)
-                        groups = planner.plan_group_count(c, None).groups
-                        node = PGroupCount(c, groups, PPinned(eff))
-                    out += Executor(sh, backend=backend, device=device) \
-                        .run_group_count(node)
-        if didx is not None:
-            if dt is None:
-                out += _egc(didx, c, e, backend=backend, optimize=optimize,
-                            device=device)
-            else:
-                if e is not None:
-                    eff = self._delta_result(dsnap, e, backend, optimize,
-                                             device).andnot(dt)
-                else:
-                    eff = ~dt
-                groups = Planner(didx, optimize=optimize) \
-                    .plan_group_count(c, None).groups
-                node = PGroupCount(c, groups, PPinned(eff))
-                out += Executor(didx, backend=backend,
-                                device=device).run_group_count(node)
-        return out
+        """GROUP BY ``col`` COUNT(*) under ``e``: per-layer partial count
+        vectors (the ``counts`` of each layer's one-column group-by),
+        summed."""
+        c = self.resolve_column(col)
+        parts = self._partials(("gcount", c, e), backend, optimize, pool,
+                               device)
+        if not parts:
+            return np.zeros(self.card(c), dtype=np.int64)
+        return merge_partials("gcount", parts)
 
     def agg(self, measure, e: Optional[Expr] = None, backend: str = "auto",
             optimize: bool = True, pool=None,
             device: Optional[Device] = None):
         """Scalar ``(sum, count, min, max)`` of ``measure`` under ``e``,
         compressed-domain across the base+delta merge: each layer slices
-        its own measure sidecar with its effective filter (tombstones
-        pinned into the plan as already-evaluated bitmaps) and the partial
+        its own measure sidecar with its effective filter and the partial
         tuples merge — no row reconstruction anywhere."""
-        from .executor import Executor
         name = str(measure)
         if name not in self.measure_spec:
             raise KeyError(f"unknown measure {name!r}; this live index "
                            f"declares {sorted(self.measure_spec)}")
-        device = self._device(device)
-        base, tombs, dsnap, dn, dt = self._snapshot()
-        didx = dsnap[0]
-        parts = []
-        if base.n_rows:
-            if all(t is None for t in tombs):
-                parts.append(base.agg(name, e, backend=backend,
-                                      optimize=optimize, pool=pool,
-                                      device=device))
-            else:
-                fparts = base.execute_per_shard(
-                    e, backend=backend, optimize=optimize, pool=pool,
-                    device=device) \
-                    if e is not None else [None] * len(tombs)
-                for sh, t, fp in zip(base.shards, tombs, fparts):
-                    if not sh.n_rows:
-                        continue
-                    planner = Planner(sh, optimize=optimize)
-                    if t is None and fp is None:
-                        node = planner.plan_agg(name, None)
-                    else:
-                        eff = fp if t is None else \
-                            (~t if fp is None else fp.andnot(t))
-                        planner._measure_check(name)
-                        node = PAgg(name, PPinned(eff))
-                    parts.append(Executor(sh, backend=backend,
-                                          device=device).run_agg(node))
-        if didx is not None:
-            planner = Planner(didx, optimize=optimize)
-            if dt is None and e is None:
-                node = planner.plan_agg(name, None)
-            else:
-                if e is not None:
-                    eff = self._delta_result(dsnap, e, backend, optimize,
-                                             device)
-                    if dt is not None:
-                        eff = eff.andnot(dt)
-                else:
-                    eff = ~dt
-                planner._measure_check(name)
-                node = PAgg(name, PPinned(eff))
-            parts.append(Executor(didx, backend=backend,
-                                  device=device).run_agg(node))
-        return _ms.merge_scalar_aggs(parts)
+        return merge_partials("agg", self._partials(
+            ("agg", name, e), backend, optimize, pool, device))
 
     def group_agg(self, measure, cols, e: Optional[Expr] = None,
                   backend: str = "auto", optimize: bool = True, pool=None,
                   device: Optional[Device] = None):
         """Grouped aggregates over one or two columns across the base+delta
         merge (``measure=None`` computes counts only) — same per-layer
-        partial shape as ``Executor.run_group_agg``, merged elementwise,
-        tombstones pinned exactly as in ``group_count``."""
-        from .executor import Executor
+        partial shape as ``Executor.run_group_agg``, merged elementwise."""
         name = None if measure is None else str(measure)
         if name is not None and name not in self.measure_spec:
             raise KeyError(f"unknown measure {name!r}; this live index "
                            f"declares {sorted(self.measure_spec)}")
-        device = self._device(device)
-        base, tombs, dsnap, dn, dt = self._snapshot()
-        didx = dsnap[0]
         if isinstance(cols, (int, np.integer, str)):
             cols = [cols]
-        cs = tuple(base.resolve_column(c) for c in cols)
-        parts = []
-        if base.n_rows:
-            if all(t is None for t in tombs):
-                parts.append(base.group_agg(name, list(cs), e,
-                                            backend=backend,
-                                            optimize=optimize, pool=pool,
-                                            device=device))
-            else:
-                fparts = base.execute_per_shard(
-                    e, backend=backend, optimize=optimize, pool=pool,
-                    device=device) \
-                    if e is not None else [None] * len(tombs)
-                for sh, t, fp in zip(base.shards, tombs, fparts):
-                    if not sh.n_rows:
-                        continue
-                    planner = Planner(sh, optimize=optimize)
-                    node = planner.plan_group_agg(name, list(cs), None)
-                    if not (t is None and fp is None):
-                        eff = fp if t is None else \
-                            (~t if fp is None else fp.andnot(t))
-                        node = PGroupAgg(name, node.cols, node.groups,
-                                         PPinned(eff))
-                    parts.append(Executor(sh, backend=backend,
-                                          device=device).run_group_agg(node))
-        if didx is not None:
-            planner = Planner(didx, optimize=optimize)
-            if dt is None:
-                node = planner.plan_group_agg(name, list(cs), e)
-            else:
-                eff = self._delta_result(dsnap, e, backend, optimize,
-                                         device).andnot(dt) \
-                    if e is not None else ~dt
-                plain = planner.plan_group_agg(name, list(cs), None)
-                node = PGroupAgg(name, plain.cols, plain.groups, PPinned(eff))
-            parts.append(Executor(didx, backend=backend,
-                                  device=device).run_group_agg(node))
+        cs = tuple(self.resolve_column(c) for c in cols)
+        parts = self._partials(("gagg", name, cs, e), backend, optimize,
+                               pool, device)
         if not parts:
-            shape = tuple(base.card(c) for c in cs)
+            shape = tuple(self.card(c) for c in cs)
             return _ms.empty_group_agg(cs, shape, name,
                                        self.measure_spec.get(name)
                                        if name else None)
-        return _ms.merge_group_aggs(parts)
+        return merge_partials("gagg", parts)
 
     # -- compaction ----------------------------------------------------------
     def compact(self, relayout: bool = False) -> Dict:
@@ -959,6 +844,17 @@ class LiveIndex:
         if not isinstance(idx, ShardedIndex):
             idx = ShardedIndex([idx], column_names=self.column_names)
         return idx
+
+
+def _pinned(task, fp: Optional[EWAH], t: Optional[EWAH]):
+    """``task`` under one layer's effective filter: the filter's result
+    ``fp`` (``None``: every row) less the tombstone ``t``, pinned into the
+    plan as an already-evaluated bitmap; the task as it is when neither
+    is there."""
+    if fp is None and t is None:
+        return task
+    eff = ~t if fp is None else (fp if t is None else fp.andnot(t))
+    return task[:-1] + (PPinned(eff),)
 
 
 class Compactor:

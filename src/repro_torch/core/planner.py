@@ -23,11 +23,14 @@ shape dominates):
   payload is ever decoded).
 
 Beyond boolean filters the planner also lowers *aggregation statements*:
-``plan_count`` wraps a filter into a ``PCount`` and ``plan_group_count``
-expands a column into one value node per rank under a shared filter
-(``PGroupCount``) — the executor evaluates both entirely in the compressed
-domain (memoized popcounts and interval intersection; no result bitmap is
-materialized for an aggregate).
+``plan_count`` wraps a filter into a ``PCount``, ``plan_agg`` a measure
+aggregate into a ``PAgg``, and ``plan_group_agg`` expands one or two
+columns into one value node per rank under a shared filter
+(``PGroupAgg``) — the executor evaluates them entirely in the compressed
+domain (memoized popcounts, interval slicing and the columns' run
+catalogs; no result bitmap is materialized for an aggregate).  A
+statement's filter is an ``Expr``, ``None``, or a bitmap already pinned
+into the plan (``PPinned``).
 
 Every lowered node also carries ``ckey``, a commutativity-normalized
 structural key of its subtree (the plan-level analogue of
@@ -151,25 +154,6 @@ class PCount(PlanNode):
 
     def __repr__(self):
         return f"COUNT({self.child!r})"
-
-
-@dataclass
-class PGroupCount(PlanNode):
-    """Per-value counts of one column under a shared filter.
-
-    ``groups[v]`` is the lowered value node of rank ``v`` (one bitmap at
-    k=1, an AND of k bitmaps otherwise); the executor intersects every
-    group with the filter in the compressed domain — interval arithmetic
-    over run boundaries, never a decompressed result bitmap — and on a
-    sharded index per-shard partial count vectors are summed at the
-    coordinator (no global bitmap concatenation)."""
-    col: int
-    groups: List[PlanNode]
-    filter: Optional[PlanNode]
-
-    def __repr__(self):
-        return (f"GROUP_COUNT(c{self.col} x{len(self.groups)}, "
-                f"where={self.filter!r})")
 
 
 @dataclass
@@ -300,33 +284,19 @@ class Planner:
             e = flatten(push_not(e))
         return self._lower(e)
 
+    def _filter(self, e) -> Optional[PlanNode]:
+        """A statement's filter plan: an ``Expr`` lowered, ``None`` (no
+        filter) or an already-evaluated ``PPinned`` bitmap as it is."""
+        return self.plan(e) if isinstance(e, Expr) else e
+
     def plan_count(self, e: Optional[Expr] = None) -> PCount:
         """Lower a COUNT statement: ``e is None`` counts every row."""
-        child = self.plan(e) if e is not None else self._const(True)
+        child = self._filter(e) if e is not None else self._const(True)
         node = PCount(child)
         node.est_words = 0
         node.est_rows = child.est_rows
-        node.ckey = ("count", child.ckey)
-        return node
-
-    def plan_group_count(self, col, e: Optional[Expr] = None) -> PGroupCount:
-        """Lower a GROUP BY ``col`` COUNT(*) statement.
-
-        One value node per rank of the column (its minimal bitmap set at
-        any k) under one shared filter plan — the fan-out the executor
-        batches through its operand/subexpression cache."""
-        c = self.index.resolve_column(col)
-        card = self.index.card(c)
-        enc = self.index.columns[c].encoder
-        codes = enc.codes(np.arange(card, dtype=np.int64))
-        groups = [self._value_node(c, code) for code in codes]
-        filt = self.plan(e) if e is not None else None
-        node = PGroupCount(c, groups, filt)
-        node.est_words = 0
-        node.est_rows = filt.est_rows if filt is not None else \
-            self.index.n_rows
-        node.ckey = ("gcount", c,
-                     None if filt is None else filt.ckey)
+        if child.ckey is not None:  # pinned filter: no structural identity
+            node.ckey = ("count", child.ckey)
         return node
 
     def _measure_check(self, name: str) -> None:
@@ -340,7 +310,7 @@ class Planner:
         """Lower a scalar measure aggregate (sum/avg/min/max/count of a
         measure) under an optional filter."""
         self._measure_check(measure)
-        filt = self.plan(e) if e is not None else None
+        filt = self._filter(e)
         node = PAgg(measure, filt)
         node.est_words = 0
         node.est_rows = filt.est_rows if filt is not None else \
@@ -357,7 +327,7 @@ class Planner:
         """Lower a grouped aggregate over one or two grouping columns.
 
         ``measure=None`` lowers a multi-column COUNT(*) group-by (the
-        two-column analogue of ``plan_group_count``)."""
+        analogue of ``plan_count``, per value or pair of values)."""
         if measure is not None:
             self._measure_check(measure)
         cols = [cols] if isinstance(cols, (int, np.integer, str)) else \
@@ -376,7 +346,7 @@ class Planner:
             enc = self.index.columns[c].encoder
             codes = enc.codes(np.arange(self.index.card(c), dtype=np.int64))
             groups.append([self._value_node(c, code) for code in codes])
-        filt = self.plan(e) if e is not None else None
+        filt = self._filter(e)
         node = PGroupAgg(measure, tuple(resolved), tuple(groups), filt)
         node.est_words = 0
         node.est_rows = filt.est_rows if filt is not None else \
@@ -708,12 +678,6 @@ def explain(node: PlanNode, depth: int = 0) -> str:
     if isinstance(node, PCount):
         return f"{pad}COUNT (compressed-domain popcount)\n" \
             + explain(node.child, depth + 1)
-    if isinstance(node, PGroupCount):
-        lines = [f"{pad}GROUP-COUNT c{node.col} x{len(node.groups)} groups "
-                 f"(compressed-domain interval intersection)"]
-        if node.filter is not None:
-            lines += [f"{pad}  where:", explain(node.filter, depth + 2)]
-        return "\n".join(lines)
     if isinstance(node, PAgg):
         lines = [f"{pad}AGG {node.measure} (interval-sliced measure "
                  f"reduction) {_est(node)}"]

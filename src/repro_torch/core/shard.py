@@ -26,11 +26,14 @@ forks workers that inherit the shards by copy-on-write so CPU-bound EWAH
 work escapes the GIL without ever pickling an index; only the compressed
 results cross process boundaries.  Forked workers never touch CUDA: they
 run the NumPy EWAH path on the host (see ``ShardProcessPool``), while a
-thread pool runs each shard's kernel path from its own thread.  Each shard
-also keeps a *shard-local* LRU of its own EWAH results keyed by the
-expression's canonical structural key — ``replace_shard`` (a single-shard rebuild) invalidates only that
-slice, so the other shards' warm results survive an incremental reindex
-(and bumps the index generation, which makes process pools re-fork).
+thread pool runs each shard's kernel path from its own thread.  Whatever
+the pool, and in the RPC workers, a shard runs its statement task through
+``run_shard_task`` and the coordinator merges the partials through
+``merge_partials``.  Each shard also keeps a *shard-local* LRU of its own
+partials keyed by the statement's canonical structural key —
+``replace_shard`` (a single-shard rebuild) invalidates only that slice, so
+the other shards' warm results survive an incremental reindex (and bumps
+the index generation, which makes process pools re-fork).
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from .expr import Expr, canonical_key
 from .index import (BitmapIndex, ColumnIndex, IndexBuilder, WORD_ROWS,
                     concat_bitmaps, validate_partition_rows)
 from .lru import LRUCache, payload_kind, payload_nbytes
+from . import measures as _ms
 
 Device = Union[str, torch.device]
 
@@ -371,15 +375,18 @@ class ShardedIndex:
     def cache_stats(self) -> List[Dict]:
         return [c.stats() for c in self._result_caches]
 
-    def _fan_out(self, key, run_shard, task, pool,
-                 backend: str, optimize: bool) -> List:
-        """Shared shard fan-out: per-shard LRU lookup, pool dispatch for the
-        misses, cache refill.  Returns one result per shard, in order.
+    def _fan_out(self, key, task, backend: str, optimize: bool,
+                 caches: Optional[List[Dict]], pool, device: Device) -> List:
+        """Shared shard fan-out: per-shard LRU lookup, ``run_shard_task``
+        for the misses, cache refill.  Returns one partial per shard, in
+        order.
 
         ``key`` (or ``None`` to skip caching) addresses the shard-local
-        LRUs; ``task`` is the picklable statement shipped to a
-        ``ShardProcessPool``; ``run_shard(i, shard)`` is the in-process
-        fallback, handed the shard object from *this* snapshot.
+        LRUs; ``task`` is the picklable statement every missing shard runs:
+        in the workers of a ``ShardProcessPool``, through a
+        ``concurrent.futures`` pool, or in turn in this thread, against the
+        shard objects of *this* snapshot with ``caches[i]`` as shard ``i``'s
+        operand cache.
 
         Caches are snapshotted *before* shards — in here, so no caller can
         get the order wrong: ``replace_shard`` writes the shard first, then
@@ -403,7 +410,10 @@ class ShardedIndex:
 
         def shard_task(i: int):
             with _trace.span("shard.task", shard=i):
-                return run_shard(i, shards[i])
+                return run_shard_task(
+                    shards[i], task, backend=backend, optimize=optimize,
+                    cache=caches[i] if caches is not None else None,
+                    device=device)
 
         if isinstance(pool, ShardProcessPool) and len(missing) > 1:
             fresh = pool.run_shards(task, missing, backend=backend,
@@ -419,48 +429,35 @@ class ShardedIndex:
                 rcaches[i].put(key, res)
         return parts
 
+    def partials(self, task, backend: str = "auto", optimize: bool = True,
+                 caches: Optional[List[Dict]] = None, pool=None,
+                 device: Device = "cuda") -> List:
+        """Per-shard partials of one statement task whose filter comes
+        last (``expr``, ``count``, ``gcount``, ``agg`` or ``gagg``; see
+        ``run_shard_task``), in shard order.
+
+        ``merge_partials`` merges them; the live-ingest layer takes them
+        unmerged to pair each shard's filter result with that shard's
+        tombstone, so the shard-local LRU entries (keyed by the statement
+        alone) stay valid across tombstone changes.  ``caches`` (one
+        operand dict per shard) lets a batch share loaded bitmaps across
+        statements, exactly like ``Executor``'s cache does for a
+        monolithic index; ``pool`` runs shards concurrently (shard tasks
+        submit no further work, so a dedicated pool is deadlock-free by
+        construction).  Partials are memoized in the shard-local LRUs
+        under ``_task_key`` — a repeat (or commutatively reordered)
+        statement only re-executes shards whose cache was invalidated.
+        """
+        return self._fan_out(_task_key(task, backend, optimize), task,
+                             backend, optimize, caches, pool, device)
+
     def execute(self, e, backend: str = "auto", optimize: bool = True,
                 caches: Optional[List[Dict]] = None, pool=None,
                 device: Device = "cuda") -> EWAH:
-        """Plan per shard, execute per shard, concatenate the EWAH results.
-
-        ``caches`` (one operand dict per shard) lets a batch share loaded
-        bitmaps across queries, exactly like ``Executor``'s cache does for a
-        monolithic index.  ``pool`` (any ``concurrent.futures`` executor)
-        runs shards concurrently; shard tasks submit no further work, so a
-        dedicated pool is deadlock-free by construction.  Per-shard results
-        of ``Expr`` queries are memoized in the shard-local LRU keyed by
-        ``canonical_key`` — a repeat (or commutatively reordered) query only
-        re-executes shards whose cache was invalidated.
-        """
-        return concat_bitmaps(self.execute_per_shard(
-            e, backend=backend, optimize=optimize, caches=caches, pool=pool,
-            device=device))
-
-    def execute_per_shard(self, e, backend: str = "auto",
-                          optimize: bool = True,
-                          caches: Optional[List[Dict]] = None,
-                          pool=None, device: Device = "cuda") -> List[EWAH]:
-        """Per-shard EWAH results of one expression, in shard order.
-
-        The fan-out behind ``execute``, exposed separately for callers that
-        need the un-concatenated slices — the live-ingest layer pairs each
-        shard's result with that shard's tombstone before merging, so the
-        shard-local LRU entries (keyed by the expression alone) stay valid
-        across tombstone changes.
-        """
-        from .executor import Executor  # local: executor also dispatches here
-        key = (("expr", backend, bool(optimize), canonical_key(e))
-               if isinstance(e, Expr) else None)
-
-        def run_shard(i: int, sh: BitmapIndex) -> EWAH:
-            node = _plan_task(sh, ("expr", e), optimize)
-            cache = caches[i] if caches is not None else None
-            return Executor(sh, backend=backend, cache=cache,
-                            device=device).run(node)
-
-        return self._fan_out(key, run_shard, ("expr", e), pool,
-                             backend, optimize)
+        """Plan per shard, execute per shard, concatenate the EWAH results
+        (see ``partials``)."""
+        return merge_partials("expr", self.partials(
+            ("expr", e), backend, optimize, caches, pool, device))
 
     def count(self, e=None, backend: str = "auto", optimize: bool = True,
               caches: Optional[List[Dict]] = None, pool=None,
@@ -471,21 +468,9 @@ class ShardedIndex:
         domain; the coordinator *sums the integers* — no per-shard result
         bitmap is ever concatenated for an aggregate.
         """
-        from .executor import Executor
-        if e is not None and not isinstance(e, Expr):
-            raise TypeError(f"count() takes an Expr or None, got {e!r}")
-        key = ("count", backend, bool(optimize),
-               canonical_key(e) if e is not None else None)
-
-        def run_shard(i: int, sh: BitmapIndex) -> int:
-            node = _plan_task(sh, ("count", e), optimize)
-            cache = caches[i] if caches is not None else None
-            return Executor(sh, backend=backend, cache=cache,
-                            device=device).run_count(node)
-
-        parts = self._fan_out(key, run_shard, ("count", e), pool,
-                              backend, optimize)
-        return int(sum(parts))
+        _check_filter("count", e)
+        return merge_partials("count", self.partials(
+            ("count", e), backend, optimize, caches, pool, device))
 
     def group_count(self, col, e=None, backend: str = "auto",
                     optimize: bool = True,
@@ -495,30 +480,15 @@ class ShardedIndex:
         length ``card(col)``.
 
         The shards share one set of encoders, so every shard produces a
-        count vector in the same value-rank space; the coordinator merges
-        by *summing the partial vectors* (scatter/gather aggregation — the
-        global result bitmap that ``execute`` would concatenate never
-        exists here).
+        count vector in the same value-rank space (the ``counts`` of its
+        one-column group-by); the coordinator merges by *summing the
+        partial vectors* (scatter/gather aggregation — the global result
+        bitmap that ``execute`` would concatenate never exists here).
         """
-        from .executor import Executor
-        if e is not None and not isinstance(e, Expr):
-            raise TypeError(f"group_count() takes an Expr or None, got {e!r}")
-        c = self.resolve_column(col)
-        key = ("gcount", c, backend, bool(optimize),
-               canonical_key(e) if e is not None else None)
-
-        def run_shard(i: int, sh: BitmapIndex) -> np.ndarray:
-            node = _plan_task(sh, ("gcount", c, e), optimize)
-            cache = caches[i] if caches is not None else None
-            return Executor(sh, backend=backend, cache=cache,
-                            device=device).run_group_count(node)
-
-        parts = self._fan_out(key, run_shard, ("gcount", c, e), pool,
-                              backend, optimize)
-        out = np.zeros(self.card(c), dtype=np.int64)
-        for p in parts:
-            out += p
-        return out
+        _check_filter("group_count", e)
+        task = ("gcount", self.resolve_column(col), e)
+        return merge_partials("gcount", self.partials(
+            task, backend, optimize, caches, pool, device))
 
     # -- measure aggregates (compressed-domain OLAP) ------------------------
     @property
@@ -532,23 +502,10 @@ class ShardedIndex:
         ``e``: each shard slices its own measure sidecar by its filter
         intervals, the coordinator merges the four-number partials —
         bitmaps and measure values never leave their shard."""
-        from .executor import Executor
-        from .measures import merge_scalar_aggs
-        if e is not None and not isinstance(e, Expr):
-            raise TypeError(f"agg() takes an Expr or None, got {e!r}")
-        name = str(measure)
-        key = ("agg", name, backend, bool(optimize),
-               canonical_key(e) if e is not None else None)
-
-        def run_shard(i: int, sh: BitmapIndex):
-            node = _plan_task(sh, ("agg", name, e), optimize)
-            cache = caches[i] if caches is not None else None
-            return Executor(sh, backend=backend, cache=cache,
-                            device=device).run_agg(node)
-
-        parts = self._fan_out(key, run_shard, ("agg", name, e), pool,
-                              backend, optimize)
-        return merge_scalar_aggs(parts)
+        _check_filter("agg", e)
+        return merge_partials("agg", self.partials(
+            ("agg", str(measure), e), backend, optimize, caches, pool,
+            device))
 
     def group_agg(self, measure, cols, e=None, backend: str = "auto",
                   optimize: bool = True,
@@ -558,26 +515,13 @@ class ShardedIndex:
         counting rows when ``None``); per-shard partial dicts merge
         elementwise (sums/counts add, mins/maxs combine against their
         identities)."""
-        from .executor import Executor
-        from .measures import merge_group_aggs
-        if e is not None and not isinstance(e, Expr):
-            raise TypeError(f"group_agg() takes an Expr or None, got {e!r}")
+        _check_filter("group_agg", e)
         name = None if measure is None else str(measure)
         if not isinstance(cols, (list, tuple)):
             cols = [cols]
         cs = tuple(self.resolve_column(c) for c in cols)
-        key = ("gagg", name, cs, backend, bool(optimize),
-               canonical_key(e) if e is not None else None)
-
-        def run_shard(i: int, sh: BitmapIndex) -> Dict:
-            node = _plan_task(sh, ("gagg", name, cs, e), optimize)
-            cache = caches[i] if caches is not None else None
-            return Executor(sh, backend=backend, cache=cache,
-                            device=device).run_group_agg(node)
-
-        parts = self._fan_out(key, run_shard, ("gagg", name, cs, e), pool,
-                              backend, optimize)
-        return merge_group_aggs(parts)
+        return merge_partials("gagg", self.partials(
+            ("gagg", name, cs, e), backend, optimize, caches, pool, device))
 
     def top_k(self, col, k: int, e=None, measure=None,
               backend: str = "auto", optimize: bool = True,
@@ -619,15 +563,8 @@ class ShardedIndex:
             return full_merge()
         key = ("gtop", c, name, k, backend, bool(optimize),
                canonical_key(e) if e is not None else None)
-
-        def run_gtop(i: int, sh: BitmapIndex) -> Dict:
-            cache = caches[i] if caches is not None else None
-            return run_shard_task(sh, ("gtop", c, e, k, name),
-                                  backend=backend, optimize=optimize,
-                                  cache=cache, device=device)
-
-        parts = self._fan_out(key, run_gtop, ("gtop", c, e, k, name), pool,
-                              backend, optimize)
+        parts = self._fan_out(key, ("gtop", c, e, k, name), backend,
+                              optimize, caches, pool, device)
         if not all(p["prunable"] for p in parts):
             return full_merge()
         vdt = parts[0]["vals"].dtype
@@ -640,16 +577,9 @@ class ShardedIndex:
         kth_lb = np.partition(lb, card - k)[card - k]
         candidates = np.flatnonzero(ub >= kth_lb)
         ids = tuple(int(g) for g in candidates)
-
-        def run_gvals(i: int, sh: BitmapIndex) -> Dict:
-            cache = caches[i] if caches is not None else None
-            return run_shard_task(sh, ("gvals", c, e, ids, name),
-                                  backend=backend, optimize=optimize,
-                                  cache=cache, device=device)
-
         # candidate sets are query-dependent; phase 2 skips the result LRU
-        parts2 = self._fan_out(None, run_gvals, ("gvals", c, e, ids, name),
-                               pool, backend, optimize)
+        parts2 = self._fan_out(None, ("gvals", c, e, ids, name), backend,
+                               optimize, caches, pool, device)
         vals = np.zeros(card, dtype=vdt)
         counts = np.zeros(card, dtype=np.int64)
         for p in parts2:
@@ -744,18 +674,23 @@ def run_shard_task(sh: BitmapIndex, task, backend: str = "auto",
 
     ``task`` mirrors the coordinator's statement kinds: ``("expr", e)``
     returns the shard's EWAH result, ``("count", e)`` its partial count and
-    ``("gcount", col, e)`` its partial per-value count vector — aggregates
-    ship a few integers across a process or network boundary instead of a
-    bitmap.  Measure statements follow the same shape: ``("agg", measure,
-    e)`` returns the shard's ``(sum, count, min, max)`` partial,
-    ``("gagg", measure, cols, e)`` its grouped partial dict, ``("gtop",
-    col, e, m, measure)`` its pruned top-m report (ids/vals/counts plus the
-    ``tau`` threshold and a ``prunable`` flag) and ``("gvals", col, e, ids,
-    measure)`` exact partials at the given candidate ids.  This is the
-    single shard-side execution path shared by the fork-based
-    ``ShardProcessPool`` and the RPC worker tier
-    (``repro_torch.serve.worker_api``), so a worker computes exactly what
-    the single-process ``ShardedIndex`` fan-out would.  ``device`` is where the shard's kernel path runs.
+    ``("gcount", col, e)`` its partial per-value count vector (the
+    ``counts`` of the one-column group-by, from the column's run catalog)
+    — aggregates ship a few integers across a process or network boundary
+    instead of a bitmap.  Measure statements follow the same shape:
+    ``("agg", measure, e)`` returns the shard's ``(sum, count, min, max)``
+    partial, ``("gagg", measure, cols, e)`` its grouped partial dict,
+    ``("gtop", col, e, m, measure)`` its pruned top-m report
+    (ids/vals/counts plus the ``tau`` threshold and a ``prunable`` flag)
+    and ``("gvals", col, e, ids, measure)`` exact partials at the given
+    candidate ids.  A filter ``e`` is an ``Expr``, ``None`` or, in
+    process, an already-evaluated ``PPinned`` bitmap.  This is the single
+    shard-side execution path, shared by the in-process ``ShardedIndex``
+    fan-out, the fork-based ``ShardProcessPool``, the RPC worker tier
+    (``repro_torch.serve.worker_api``), the live-ingest layer and a
+    monolithic index's statements, so a worker computes exactly what the
+    single process would.  ``device`` is where the shard's kernel path
+    runs.
     """
     from .executor import Executor
     kind = task[0]
@@ -766,7 +701,7 @@ def run_shard_task(sh: BitmapIndex, task, backend: str = "auto",
     if kind == "count":
         return ex.run_count(node)
     if kind == "gcount":
-        return ex.run_group_count(node)
+        return ex.run_group_agg(node)["counts"]
     if kind == "agg":
         return ex.run_agg(node)
     if kind == "gagg":
@@ -798,6 +733,42 @@ def run_shard_task(sh: BitmapIndex, task, backend: str = "auto",
     return {"vals": vals[ids], "counts": counts[ids]}
 
 
+def _task_key(task, backend: str, optimize: bool) -> Optional[tuple]:
+    """The shard-LRU key of a statement task whose filter comes last: its
+    kind and parameters, the backend, ``optimize`` and the filter's
+    ``canonical_key`` (``None`` for no filter).  A plan node in the
+    filter's place has no stable identity, and is not cached."""
+    e = task[-1]
+    if e is not None and not isinstance(e, Expr):
+        return None
+    return ((task[0],) + tuple(task[1:-1])
+            + (backend, bool(optimize),
+               canonical_key(e) if e is not None else None))
+
+
+def _check_filter(method: str, e) -> None:
+    if e is not None and not isinstance(e, Expr):
+        raise TypeError(f"{method}() takes an Expr or None, got {e!r}")
+
+
+def merge_partials(kind: str, parts: Sequence):
+    """The coordinator's merge of one statement kind's partials (results
+    of ``run_shard_task``, in row order): result bitmaps concatenate,
+    counts and per-value count vectors add, measure partials merge
+    through ``merge_scalar_aggs`` / ``merge_group_aggs``."""
+    if kind == "expr":
+        return concat_bitmaps(parts)
+    if kind == "count":
+        return int(sum(parts))
+    if kind == "gcount":
+        return np.sum(parts, axis=0, dtype=np.int64)
+    if kind == "agg":
+        return _ms.merge_scalar_aggs(parts)
+    if kind == "gagg":
+        return _ms.merge_group_aggs(parts)
+    raise ValueError(f"no merge for shard task {kind!r}")
+
+
 def _plan_task(sh: BitmapIndex, task, optimize: bool):
     """The shard's plan of one statement task (see ``run_shard_task``),
     timed as the span ``exec.plan``."""
@@ -812,11 +783,11 @@ def _plan_task(sh: BitmapIndex, task, optimize: bool):
         if kind == "count":
             return p.plan_count(task[1])
         if kind == "gcount":
-            return p.plan_group_count(task[1], task[2])
+            return p.plan_group_agg(None, [task[1]], task[2])
         if kind == "agg":
             return p.plan_agg(task[1], task[2])
         if kind == "gagg":
-            return p.plan_group_agg(task[1], list(task[2]), task[3])
+            return p.plan_group_agg(task[1], task[2], task[3])
         if kind in ("gtop", "gvals"):
             return p.plan_group_agg(task[4], [task[1]], task[2])
     raise ValueError(f"unknown shard task {kind!r}")

@@ -468,6 +468,8 @@ def test_http_from_many_threads_matches_sequential(table):
         n_operands = [len(shard.dense_cache) for shard in sh.shards]
         for shard in sh.shards:
             shard.dense_cache.clear()
+            for column in shard.columns:
+                column.invalidate_sizes()  # and its group-by run catalog
         # fresh shard result caches: every statement computes again
         svc.set_index(TSharded(sh.shards, column_names=NAMES))
         sys.setswitchinterval(1e-5)
