@@ -47,6 +47,7 @@ from .ewah import (
     _rl_emit,
     _rl_is_ones,
     _rl_is_zero,
+    _rl_to_words,
 )
 
 CHUNK_BITS = 1 << 16
@@ -234,16 +235,6 @@ def _run_words_exact(rl: RunList) -> int:
     n_clean = int((rl.kinds != KIND_LIT).sum())
     lead_lit = 1 if rl.kinds[0] == KIND_LIT else 0
     return max(1, n_clean + lead_lit) + len(rl.lits)
-
-
-def _rl_to_words(rl: RunList) -> np.ndarray:
-    out = np.zeros(rl.n_words, WORD_DTYPE)
-    lens = np.diff(rl.bounds)
-    c1 = rl.kinds == KIND_CLEAN1
-    out[_ranges(rl.bounds[:-1][c1], lens[c1])] = ALL_ONES
-    lm = rl.kinds == KIND_LIT
-    out[_ranges(rl.bounds[:-1][lm], lens[lm])] = rl.lits
-    return out
 
 
 def _rl_slice(rl: RunList, w0: int, w1: int) -> RunList:

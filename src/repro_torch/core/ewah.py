@@ -271,23 +271,20 @@ class EWAH:
                 i += n_lit
 
     def to_words(self) -> np.ndarray:
+        """Dense uint32 words, filled from the run-list in whole-array
+        passes: word for word the ``segments()`` walk.  The run-list is
+        the memoized one where there is one, else one cold decode that
+        stays memoized."""
         if self._words is None and self._cont is not None:
             # assemble per chunk — dense containers feed the kernels
             # without a marker-stream decode
             from .containers import containers_to_dense
             return containers_to_dense(self._cont)
-        out = np.empty(self.n_words_uncompressed, dtype=WORD_DTYPE)
-        pos = 0
-        for seg in self.segments():
-            if seg[0] == "run":
-                _, bit, cnt = seg
-                out[pos : pos + cnt] = ALL_ONES if bit else 0
-                pos += cnt
-            else:
-                lit = seg[1]
-                out[pos : pos + len(lit)] = lit
-                pos += len(lit)
-        assert pos == self.n_words_uncompressed, (pos, self.n_words_uncompressed)
+        rl = self.runlist()
+        _trace.count("ewah.to_words.intervals", rl.n_intervals)
+        out = _rl_to_words(rl)
+        assert len(out) == self.n_words_uncompressed, (
+            len(out), self.n_words_uncompressed)
         return out
 
     def to_bool(self) -> np.ndarray:
@@ -984,6 +981,18 @@ def _ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
         return np.empty(0, np.int64)
     cum0 = np.concatenate(([0], np.cumsum(lens)[:-1]))
     return np.repeat(starts - cum0, lens) + np.arange(total)
+
+
+def _rl_to_words(rl: RunList) -> np.ndarray:
+    """RunList -> dense words: clean-one intervals set, literal intervals
+    scattered from the pool, the rest zero."""
+    out = np.zeros(rl.n_words, WORD_DTYPE)
+    lens = np.diff(rl.bounds)
+    c1 = rl.kinds == KIND_CLEAN1
+    out[_ranges(rl.bounds[:-1][c1], lens[c1])] = ALL_ONES
+    lm = rl.kinds == KIND_LIT
+    out[_ranges(rl.bounds[:-1][lm], lens[lm])] = rl.lits
+    return out
 
 
 # per-interval resolution modes for an aligned (kind_a, kind_b) pair

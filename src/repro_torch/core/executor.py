@@ -130,7 +130,8 @@ class Executor:
 
     @staticmethod
     def _pad_and_flags(bm: EWAH, cp: int, device: torch.device):
-        w = bm.to_words()
+        with _trace.span("ewah.to_words"):
+            w = bm.to_words()
         if len(w) < cp:
             w = np.pad(w, (0, cp - len(w)))
         if bm._cont is not None and bm._words is None:
